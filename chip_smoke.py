@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive tabmat_torch's dense GLM main path once on one CUDA card.
+"""Drive tabmat_torch's GLM main paths once on one CUDA card.
 
 Run from the repository root with no arguments:
 
@@ -9,25 +9,38 @@ Phases, each printed as it runs:
 
 1. environment: the card's name and power limit, torch/CUDA/nvcc versions,
    TF32 off;
-2. build of the CUDA kernels from ``tabmat_torch/csrc`` (seconds, ptxas
-   registers and spills);
+2. build of the CUDA kernels from ``tabmat_torch/csrc``, one ``nvcc`` per
+   source, all at once (seconds, ptxas registers and spills);
 3. each kernel against its plain PyTorch version on the card: the sandwich
    in f64 and f32 and the range prepass ``column_absmax``, at
-   1,000,000 x 50 and at edge widths, with negative and zero weights; and a
-   control that the f32 limit rejects a TF32-rounded product;
-4. the main path at 1,000,000 x 50 float64: DenseMatrix sandwich, matvec and
-   transpose_matvec with and without active sets, standardize and the
-   standardized sandwich, then ``fit_glm`` on the DenseMatrix for gaussian and
-   poisson in both inner precisions, each held against the same algorithm
-   in numpy on the host.  The kernel launch counts are set to 0 just before
-   this phase, and every kernel must have been launched in it;
-5. times from CUDA events after warm-up: each kernel and its plain version
-   at 1,000,000 x 50, and one ``irls_step``.
+   1,000,000 x 50 and at edge widths, with negative and zero weights, and a
+   control that the f32 limit rejects a TF32-rounded product; the gather at
+   1,000,000 rows (codes with sentinels, a stack of two categoricals, and
+   sorted bounds), exactly equal; the segment sum at W in {1, 7, 1000,
+   10^6} segments, 1-D and 5 columns, with sentinels and empty segments,
+   within 1e-13 (f64) and 2e-5 (f32) of each segment's sum of |v|, and
+   bit-identical across two launches;
+4. the dense main path at 1,000,000 x 50 float64: DenseMatrix sandwich,
+   matvec and transpose_matvec with and without active sets, standardize and
+   the standardized sandwich, then ``fit_glm`` for gaussian and poisson in
+   both inner precisions, each held against the same algorithm in numpy;
+5. the mixed main path at 1,000,000 x (5 dense + 1000 + 1000 levels),
+   built without ``device=``: DeviceDesign matvec, transpose_matvec and the
+   explicit sandwich in f64 and f32 against scipy CSR, a float32
+   CategoricalMatrix matvec, then ``fit_glm`` poisson in both inner
+   precisions against the same explicit-Hessian + CG algorithm in
+   numpy/scipy;
+6. times from CUDA events after warm-up: each kernel, its plain version and
+   the one PyTorch call that computes the same function, and one
+   ``irls_step`` on each path in each inner precision, with the kernel
+   launches per mixed step.
 
-Any failed check raises, so the script exits 0 only when every check
-passed.  The last three lines are the ``kernels`` JSON object, the card's
-name and power limit, and ``{"ok": true, "device": {...}}``.  Without CUDA
-it exits non-zero and prints no result.
+The launch counts are set to 0 just before each main-path phase (4 and 5)
+and read just after; each path must launch its kernels, and the mixed path
+all seven.  Any failed check raises, so the script exits 0 only when every
+check passed.  The last three lines are the ``kernels`` JSON object, the
+card's name and power limit, and ``{"ok": true, "device": {...}}``.
+Without CUDA it exits non-zero and prints no result.
 """
 
 import json
@@ -41,6 +54,10 @@ import torch
 N, K = 1_000_000, 50
 EDGE_N = 100_003  # a multiple of no tile or stage size
 EDGE_KS = (1, 7, 64, 128, 200)
+# the mixed design of bench.py:360-371: 5 dense columns and two 1000-level
+# categoricals, so the cat x cat cell has 10^6 segments
+MIX_KD, MIX_LEVELS = 5, 1000
+SEG_WS = (1, 7, 1000, 1_000_000)
 FIT_STEPS = 4
 N_CG = 16
 # f64: the TPU kernels' own bar was relerr 5.2e-15 at this shape; 1e-13
@@ -55,13 +72,53 @@ ABSMAX_TOL = 0.0
 # summation order; the f32 inner solve (f32 Hessian and CG) differs by f32
 # rounding in another order.
 BETA_TOL = {"float64": 1e-10, "float32": 1e-4}
+# matvec and tmv against scipy differ only by summation order
+OP_TOL = 1e-12
 
-KERNEL_SOURCE = "tabmat_torch/csrc/sandwich.cu"
-REPLACES = {
-    "sandwich<double>": "tabmat_tpu/ops/pallas_sandwich_v4.py:141",
-    "sandwich<float>": "tabmat_tpu/ops/pallas_kernels.py:34",
-    "column_absmax": "tabmat_tpu/ops/pallas_sandwich_v4.py:491",
+# name -> (source, the Pallas kernel it replaces).  gather<T> also covers
+# the window take (pallas_window_take.py:109, :130), segsum<T> both one-hot
+# segment sums (pallas_segsum.py:97, pallas_segsum_bucketed.py:64).
+KERNELS = {
+    "sandwich<double>": ("tabmat_torch/csrc/sandwich.cu", "tabmat_tpu/ops/pallas_sandwich_v4.py:141"),
+    "sandwich<float>": ("tabmat_torch/csrc/sandwich.cu", "tabmat_tpu/ops/pallas_kernels.py:34"),
+    "column_absmax": ("tabmat_torch/csrc/sandwich.cu", "tabmat_tpu/ops/pallas_sandwich_v4.py:491"),
+    "gather<double>": ("tabmat_torch/csrc/gather.cu", "tabmat_tpu/ops/pallas_gather.py:110"),
+    "gather<float>": ("tabmat_torch/csrc/gather.cu", "tabmat_tpu/ops/pallas_gather.py:89"),
+    "segsum<double>": ("tabmat_torch/csrc/segsum.cu", "tabmat_tpu/ops/pallas_segsum_bucketed.py:64"),
+    "segsum<float>": ("tabmat_torch/csrc/segsum.cu", "tabmat_tpu/ops/pallas_segsum.py:97"),
 }
+DENSE_KERNELS = ("sandwich<double>", "sandwich<float>", "column_absmax")
+
+# the least time for a function: its bytes over the memory rate, or its
+# operations over the peak rate for the type, whichever is larger (H100 SXM
+# data sheet: 3.35 TB/s; 67 TFLOP/s in FP64 (tensor cores) and in FP32)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOP_PER_S = 67e12
+
+
+def bound(n_bytes: float, n_ops: float):
+    """``(bound_ms, bound_by)`` of a function that moves ``n_bytes`` and does
+    ``n_ops`` operations."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / PEAK_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _kernel_modules():
+    from tabmat_torch.ops import gather_kernel, sandwich_kernel, segsum_kernel
+
+    return sandwich_kernel, gather_kernel, segsum_kernel
+
+
+def reset_launch_counts() -> None:
+    for module in _kernel_modules():
+        module.reset_launch_counts()
+
+
+def launch_counts() -> dict:
+    counts = {}
+    for module in _kernel_modules():
+        counts.update(module.launches)
+    return counts
 
 
 def _relerr(got, ref) -> float:
@@ -106,14 +163,16 @@ def phase_build() -> None:
     from tabmat_torch import _build
 
     t0 = time.perf_counter()
-    _build.library("sandwich")
-    info = _build.build_info["sandwich"]
-    print(f"[2] build: {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {info['seconds'] if info['seconds'] is not None else 'reused'} s) "
-          f"-> {info['path']}")
-    for line in info["log"].splitlines():
-        if "Compiling entry" in line or "Used" in line or "spill" in line:
-            print("  " + line.strip())
+    names = ("sandwich", "gather", "segsum")
+    _build.build_all(names)
+    print(f"[2] build of {len(names)} sources in parallel: {time.perf_counter() - t0:.2f} s")
+    for name in names:
+        info = _build.build_info[name]
+        seconds = info["seconds"] if info["seconds"] is not None else "reused"
+        print(f"  {name}: nvcc {seconds} s -> {info['path']}")
+        for line in info["log"].splitlines():
+            if "Compiling entry" in line or "Used" in line or "spill" in line:
+                print("    " + line.strip())
     sys.stdout.flush()
 
 
@@ -171,8 +230,79 @@ def phase_kernels(device, n: int, k: int, edge_n: int, edge_ks) -> dict:
     return max_abs
 
 
+def phase_cat_kernels(device, n: int, seg_ws=SEG_WS, levels: int = MIX_LEVELS) -> dict:
+    """The gather and the segment sum against their plain versions; returns
+    max|kernel - plain| by instantiation over all cases."""
+    from tabmat_torch.ops import gather_kernel as gk
+    from tabmat_torch.ops import segsum_kernel as ssk
+    from tabmat_torch.ops.segments import build_plan
+
+    print(f"[3] gather and segment sum vs plain on {device}", flush=True)
+    rng = np.random.default_rng(11)
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    max_abs = {name: 0.0 for name in ("gather<double>", "gather<float>",
+                                      "segsum<double>", "segsum<float>")}
+    # sentinels: -1 (missing), -2 (drop_first of a missing), past the end
+    codes = rng.integers(-2, levels + 3, n).astype(np.int32)
+    # two categoricals stacked as the design stacks them: the second offset
+    # by the first's width, an invalid code turned into the pad code
+    first, second = rng.integers(-1, levels, n), rng.integers(-1, levels, n)
+    stacked = np.concatenate([np.where(first >= 0, first, 2 * levels),
+                              np.where(second >= 0, second + levels, 2 * levels)])
+    stacked = stacked.astype(np.int32)
+    bounds = np.sort(rng.integers(0, n + 1, 10**6 + 1)).astype(np.int32)
+    for dtype in (torch.float64, torch.float32):
+        name = f"gather<{'double' if dtype == torch.float64 else 'float'}>"
+        table = torch.as_tensor(rng.standard_normal(levels), dtype=dtype, device=device)
+        table2 = torch.as_tensor(rng.standard_normal(2 * levels), dtype=dtype, device=device)
+        src = torch.as_tensor(np.cumsum(rng.standard_normal(n + 1)), dtype=dtype, device=device)
+        cases = (
+            ("codes with sentinels", table, codes, n),
+            ("2-cat stack", table2, stacked, n),
+            ("sorted bounds (window take)", src, bounds, len(bounds)),
+        )
+        for label, tab, cod, rows in cases:
+            cod = torch.as_tensor(cod, device=device)
+            got = gk.gather(tab, cod, rows)
+            want = gk.gather_plain(tab, cod, rows)
+            sync()
+            err = float((got - want).abs().max())
+            max_abs[name] = max(max_abs[name], err)
+            _check(f"{name} {label} max|diff|", err, 0.0)
+    for W in seg_ws:
+        keys = rng.integers(-1, W, n)
+        if W > 2:
+            keys[np.isin(keys, [0, W // 2])] = -1  # empty segments
+        keys[: n // 3] = -1  # a run of sentinels
+        plan = build_plan(keys, W, device)
+        for m in (1, 5):
+            shape = (n,) if m == 1 else (n, m)
+            values = rng.standard_normal(shape) * np.exp(rng.uniform(-3, 3, shape))
+            for dtype, tol in ((torch.float64, F64_TOL), (torch.float32, F32_TOL)):
+                name = f"segsum<{'double' if dtype == torch.float64 else 'float'}>"
+                v = torch.as_tensor(values, dtype=dtype, device=device)
+                before = ssk.launches[name]
+                first = ssk.segsum(v, plan)
+                second = ssk.segsum(v, plan)
+                if device.type == "cuda" and ssk.launches[name] != before + 2:
+                    raise AssertionError(f"{name} W={W} m={m} launched no kernel")
+                want = ssk.segsum_plain(v, plan.perm, plan.bounds)
+                scale = ssk.segsum_plain(v.abs().double(), plan.perm, plan.bounds)
+                sync()
+                if not torch.equal(first, second):
+                    raise AssertionError(f"{name} W={W} m={m}: two launches differ")
+                diff = (first.double() - want.double()).abs()
+                max_abs[name] = max(max_abs[name], float(diff.max()))
+                rel = float((diff / scale.clamp_min(torch.finfo(torch.float64).tiny)).max())
+                _check(f"{name} W={W} m={m} max|diff|/sum|v| (repeats exactly)", rel, tol)
+    return max_abs
+
+
 def _numpy_irls(X, y, family, steps, n_cg, inner):
-    """The port's IRLS step (explicit Hessian, guarded CG) in numpy."""
+    """The port's IRLS step (explicit Hessian, guarded CG) in numpy, for a
+    dense X or a scipy sparse one."""
+    from scipy import sparse as sps
+
     dt = np.float32 if inner == "float32" else np.float64
     Xi = X.astype(dt)
     tiny = np.finfo(dt).tiny
@@ -185,7 +315,10 @@ def _numpy_irls(X, y, family, steps, n_cg, inner):
             mu = np.exp(eta)
             w = mu
         grad = X.T @ (y - mu)
-        H = (Xi * w.astype(dt)[:, None]).T @ Xi
+        if sps.issparse(Xi):
+            H = (Xi.T @ sps.csr_matrix(Xi.multiply(w.astype(dt)[:, None]))).toarray()
+        else:
+            H = (Xi * w.astype(dt)[:, None]).T @ Xi
         b = grad.astype(dt)
         x, r, p, rs = np.zeros_like(b), b, b, b @ b
         for _ in range(n_cg):
@@ -259,58 +392,244 @@ def phase_main_path(device, n: int, k: int, fit_steps: int = FIT_STEPS, seed: in
     return {"fit_launches": fit_launches, "betas": betas}
 
 
-def _time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    stop.synchronize()
-    return start.elapsed_time(stop) / reps
-
-
-def phase_times(device, n: int, k: int, card: str) -> dict:
-    """CUDA-event times; plain and kernel alternate (plain, kernel, kernel, plain)."""
+def phase_mixed_path(n: int, kd: int, levels: int, device=None, fit_steps: int = FIT_STEPS,
+                     seed: int = 1) -> dict:
+    """The mixed main path through the public API, checked against scipy CSR
+    on the host (the design of ``bench.py:360-387``).  ``device=None`` builds
+    every matrix without ``device=``: the port's default, the card."""
     import tabmat_torch as tt
-    from tabmat_torch.glm import irls_step
-    from tabmat_torch.ops import sandwich_kernel as sk
+    from scipy import sparse as sps
     from tabmat_torch.parallel.design import DeviceDesign
 
-    print(f"[5] times on {card}", flush=True)
+    kw = {} if device is None else {"device": device}
+    print(f"[5] mixed main path {n}x({kd} + {levels} + {levels}) float64, "
+          f"device={'default' if device is None else device}", flush=True)
+    rng = np.random.default_rng(seed)
+    Xd = rng.standard_normal((n, kd))
+    codes = [rng.integers(0, levels, n).astype(np.int32) for _ in range(2)]
+    t0 = time.perf_counter()
+    split = tt.SplitMatrix(
+        [tt.DenseMatrix(Xd, **kw)]
+        + [tt.CategoricalMatrix(c, categories=np.arange(levels), **kw) for c in codes]
+    )
+    design = DeviceDesign.from_matrix(split)
+    dev = design.device
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    plan_seconds = time.perf_counter() - t0
+    print(f"  design on {dev}; host plans (both categoricals and their "
+          f"{levels * levels}-cell cross) {plan_seconds:.3f} s")
+    if device is None and dev.type != "cuda":
+        raise AssertionError(f"a design built without device= landed on {dev}")
+
+    X = sps.hstack([sps.csr_matrix(Xd)] + [m.tocsr() for m in split.matrices[1:]])
+    X = sps.csr_matrix(X, dtype=np.float64)
+    k = X.shape[1]
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+
+    v, r = rng.standard_normal(k), rng.standard_normal(n)
+    w = rng.random(n) + 0.05
+    _check("DeviceDesign matvec relerr", _relerr(design.matvec(t(v)).cpu(), X @ v), OP_TOL)
+    _check("DeviceDesign transpose_matvec relerr",
+           _relerr(design.transpose_matvec(t(r)).cpu(), X.T @ r), OP_TOL)
+    H = design.sandwich(t(w)).cpu()
+    # the kernels sum in a fixed order and mirror the dense cell (the CPU's
+    # plain matmul need not be symmetric)
+    if dev.type == "cuda" and not torch.equal(H, H.T):
+        raise AssertionError("the f64 mixed sandwich is not exactly symmetric")
+    H_ref = (X.T @ sps.csr_matrix(X.multiply(w[:, None]))).toarray()
+    _check("explicit sandwich f64 relerr vs scipy", _relerr(H, H_ref), F64_TOL)
+    w32 = w.astype(np.float32)
+    X32 = sps.csr_matrix(X.astype(np.float32), dtype=np.float64)  # f32-rounded entries
+    H32_ref = (X32.T @ sps.csr_matrix(X32.multiply(w32.astype(np.float64)[:, None]))).toarray()
+    H32 = design.astype_float(torch.float32).sandwich(t(w32)).cpu()
+    _check("explicit sandwich f32 relerr vs scipy", _relerr(H32, H32_ref), F32_TOL)
+    del H, H_ref, H32, H32_ref, X32
+
+    cat32 = tt.CategoricalMatrix(codes[0], categories=np.arange(levels), dtype=np.float32, **kw)
+    v32 = rng.standard_normal(levels).astype(np.float32)
+    got = cat32.matvec(t(v32)).cpu().numpy()
+    _check("float32 CategoricalMatrix.matvec max|diff|", float(np.abs(got - v32[codes[0]]).max()), 0.0)
+
+    beta_true = np.r_[rng.standard_normal(kd) * 0.05, rng.standard_normal(2 * levels) * 0.1]
+    y = rng.poisson(np.exp(X @ beta_true)).astype(np.float64)
+    betas = {}
+    for inner in ("float64", "float32"):
+        beta, n_iter = tt.fit_glm(split, y, family="poisson", max_iter=fit_steps, tol=0.0,
+                                  n_cg=N_CG, inner_precision=inner)
+        got = beta.cpu().numpy()
+        if n_iter != fit_steps or not np.all(np.isfinite(got)):
+            raise AssertionError(f"mixed fit_glm {inner}: n_iter {n_iter}, beta {got[:8]}")
+        ref = _numpy_irls(X, y, "poisson", fit_steps, N_CG, inner)
+        _check(f"mixed fit_glm poisson inner={inner} beta vs numpy/scipy", _relerr(got, ref),
+               BETA_TOL[inner])
+        betas[inner] = got
+    return {"design": design, "y": t(y), "betas": betas, "plan_seconds": plan_seconds}
+
+
+# cycles the stream sleeps before a held timing (about 5 ms at 2 GHz)
+HOLD_CYCLES = 10_000_000
+
+
+def _time_ms(fn, reps: int = 20, warmup: int = 3, hold: bool = True) -> float:
+    """Mean ms per call of ``fn`` over ``reps`` calls, from CUDA events.
+
+    With ``hold`` the stream first sleeps on the card while the host queues
+    all the calls, so that the events time the device work back to back and
+    not the host's rate of launching it: a kernel of 0.01 ms takes longer to
+    launch from Python than to run.  The sleep grows until the host has
+    queued every call before it ends; a call that waits for the card (as
+    ``bincount`` does, to size its output) never lets it, and is timed
+    without the hold, with a note.  Without ``hold`` the time includes the
+    host's launches, as a caller's step does.
+    """
+    for _ in range(warmup):
+        fn()
+    slept, start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    cycles = HOLD_CYCLES
+    for attempt in range(4):
+        if attempt == 3:
+            print("    (this call waits for the card: timed with its host launches)")
+            hold = False
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        slept.record()
+        if hold:
+            torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        queued_ms = (time.perf_counter() - t0) * 1e3
+        stop.synchronize()
+        if not hold or queued_ms < slept.elapsed_time(start):
+            return start.elapsed_time(stop) / reps
+        cycles *= 4
+
+
+def _compare(label: str, card: str, kernel, plain, library=None) -> dict:
+    """Mean CUDA-event ms of each side, run in turns: plain, kernel, library,
+    library, kernel, plain."""
+    fns = {"plain": plain, "kernel": kernel, "library": library}
+    runs = {"plain": [], "kernel": [], "library": []}
+    for which in ("plain", "kernel", "library", "library", "kernel", "plain"):
+        if fns[which] is not None:
+            runs[which].append(_time_ms(fns[which]))
+    means = {key: (sum(v) / len(v) if v else None) for key, v in runs.items()}
+    print(f"  {label}: kernel {runs['kernel']} ms, plain {runs['plain']} ms, "
+          f"library {runs['library'] or 'none'} ms ({card})")
+    return means
+
+
+def phase_times(device, n: int, k: int, card: str, mixed: dict) -> dict:
+    """Kernel, plain and library times with their bounds, and IRLS step times."""
+    import tabmat_torch as tt
+    from torch.nn import functional as F
+    from tabmat_torch.glm import irls_step
+    from tabmat_torch.ops import gather_kernel as gk
+    from tabmat_torch.ops import sandwich_kernel as sk
+    from tabmat_torch.ops import segsum_kernel as ssk
+    from tabmat_torch.parallel.design import DeviceDesign
+
+    print(f"[6] times on {card}", flush=True)
     gen = torch.Generator(device=device).manual_seed(5)
     times = {}
-    cases = (
-        ("sandwich<double>", sk.sandwich, sk.sandwich_plain, torch.float64, torch.float64),
-        ("sandwich<float>", sk.sandwich, sk.sandwich_plain, torch.float32, torch.float32),
-        ("column_absmax", sk.column_absmax, sk.column_absmax_plain, torch.float32,
-         torch.float64),
-    )
-    for name, kernel, plain, x_dtype, d_dtype in cases:
+    for name, x_dtype, d_dtype in (("sandwich<double>", torch.float64, torch.float64),
+                                   ("sandwich<float>", torch.float32, torch.float32),
+                                   ("column_absmax", torch.float32, torch.float64)):
         X = torch.randn(n, k, device=device, dtype=x_dtype, generator=gen)
         d = torch.rand(n, device=device, dtype=d_dtype, generator=gen)
-        runs = {"plain": [], "kernel": []}
-        for which in ("plain", "kernel", "kernel", "plain"):
-            fn = plain if which == "plain" else kernel
-            runs[which].append(_time_ms(lambda: fn(X, d)))
-        times[name] = {key: sum(v) / len(v) for key, v in runs.items()}
-        print(f"  {name} {n}x{k}: kernel {runs['kernel']} ms, "
-              f"plain {runs['plain']} ms ({card})")
+        size = X.element_size()
+        if name == "column_absmax":
+            t = _compare(f"{name} {n}x{k}", card, lambda: sk.column_absmax(X, d),
+                         lambda: sk.column_absmax_plain(X, d))
+            t["bound"] = bound(n * k * size + n * 8 + k * 8, 2 * n * k)
+        else:
+            t = _compare(f"{name} {n}x{k}", card, lambda: sk.sandwich(X, d),
+                         lambda: sk.sandwich_plain(X, d),
+                         lambda: torch.einsum("ni,n,nj->ij", X, d, X))
+            # the upper triangle's multiply-adds and the scaling by d
+            t["bound"] = bound(n * k * size + n * size + k * k * size, n * k * (k + 1) + n * k)
+        times[name] = t
         del X, d
+
+    design, y = mixed["design"], mixed["y"]
+    cat = design._block("cat")
+    n_rows, width = cat.n, cat.width
+    codes2 = cat.codes.long()
+    for dtype, size in ((torch.float64, 8), (torch.float32, 4)):
+        suffix = "double" if dtype == torch.float64 else "float"
+        # gather<double>: the stacked matvec of the mixed step (C = 2);
+        # gather<float>: a float32 CategoricalMatrix matvec (C = 1)
+        if dtype == torch.float64:
+            table = torch.randn(width, device=device, dtype=dtype, generator=gen)
+            codes, C = cat.codes, 2
+            padded = torch.cat([table, table.new_zeros(1)])[:, None]
+            bags = codes2.view(2, n_rows).T.contiguous()
+            library = lambda: F.embedding_bag(bags, padded, mode="sum")  # noqa: E731
+        else:
+            table = torch.randn(cat.widths[0], device=device, dtype=dtype, generator=gen)
+            codes, C = cat.codes[:n_rows], 1
+            single = codes.long()
+            library = lambda: table[single]  # noqa: E731
+        t = _compare(f"gather<{suffix}> {n_rows} rows, C={C}", card,
+                     lambda: gk.gather(table, codes, n_rows),
+                     lambda: gk.gather_plain(table, codes, n_rows), library)
+        t["bound"] = bound(C * n_rows * 4 + n_rows * size + table.numel() * size,
+                           (C - 1) * n_rows)
+        times[f"gather<{suffix}>"] = t
+
+        # segsum<T>: the stacked tmv / sandwich diagonal (W = 2000, m = 1);
+        # then the cat x dense cells (m = 5) and the cat x cat cell (W = 10^6)
+        plan = cat.plan
+        r = torch.randn(n_rows, device=device, dtype=dtype, generator=gen)
+        r2 = r.repeat(2)
+        t = _compare(f"segsum<{suffix}> stacked W={width} m=1", card,
+                     lambda: ssk.segsum(r, plan),
+                     lambda: ssk.segsum_plain(r, plan.perm, plan.bounds),
+                     lambda: torch.bincount(codes2, weights=r2, minlength=width + 1))
+        E = plan.perm.shape[0]
+        t["bound"] = bound(E * 4 + n_rows * size + (width + 1) * 4 + width * size, E)
+        times[f"segsum<{suffix}>"] = t
+        wX = torch.randn(n_rows, MIX_KD, device=device, dtype=dtype, generator=gen)
+        wX2 = wX.repeat(2, 1)
+        _compare(f"segsum<{suffix}> stacked W={width} m={MIX_KD}", card,
+                 lambda: ssk.segsum(wX, plan),
+                 lambda: ssk.segsum_plain(wX, plan.perm, plan.bounds),
+                 lambda: torch.zeros(width + 1, MIX_KD, device=device, dtype=dtype)
+                 .index_add_(0, codes2, wX2))
+        xplan = cat.cross[(0, 1)]
+        xcodes = (cat.codes[:n_rows].long() * cat.widths[1] + cat.codes[n_rows:].long()
+                  - cat.widths[0])
+        _compare(f"segsum<{suffix}> cross W={xplan.num_segments} m=1", card,
+                 lambda: ssk.segsum(r, xplan),
+                 lambda: ssk.segsum_plain(r, xplan.perm, xplan.bounds),
+                 lambda: torch.bincount(xcodes, weights=r, minlength=xplan.num_segments))
+        del wX, wX2, r, r2
 
     rng = np.random.default_rng(7)
     X_np = rng.standard_normal((n, k))
-    design = DeviceDesign.from_matrix(tt.DenseMatrix(X_np, device=device))
-    y = torch.as_tensor(X_np @ rng.standard_normal(k) + 0.1 * rng.standard_normal(n), device=device)
-    w = torch.ones(n, dtype=torch.float64, device=device)
-    b0 = torch.zeros(k, dtype=torch.float64, device=device)
-    for inner in ("float32", "float64"):
-        ms = _time_ms(lambda: irls_step(design, y, w, b0, family="gaussian", n_cg=N_CG,
-                                        inner_precision=inner), reps=10)
-        times[f"irls_step_{inner}"] = ms
-        print(f"  irls_step gaussian inner={inner} n_cg={N_CG}: {ms:.4f} ms ({card})")
+    dense = DeviceDesign.from_matrix(tt.DenseMatrix(X_np, device=device))
+    y_dense = torch.as_tensor(X_np @ rng.standard_normal(k) + 0.1 * rng.standard_normal(n),
+                              device=device)
+    steps = (("dense gaussian", dense, y_dense, "gaussian"), ("mixed poisson", design, y, "poisson"))
+    for label, dd, yy, family in steps:
+        w = torch.ones(dd.shape[0], dtype=torch.float64, device=device)
+        b0 = torch.zeros(dd.shape[1], dtype=torch.float64, device=device)
+        for inner in ("float32", "float64"):
+            def step():
+                return irls_step(dd, yy, w, b0, family=family, n_cg=N_CG, inner_precision=inner)
+
+            ms = _time_ms(step, reps=10, hold=False)
+            reset_launch_counts()
+            step()
+            torch.cuda.synchronize(device)
+            per_step = {key: v for key, v in launch_counts().items() if v}
+            times[f"irls_step {label} {inner}"] = {"ms": ms, "launches": per_step}
+            print(f"  irls_step {label} {dd.shape[0]}x{dd.shape[1]} inner={inner} "
+                  f"n_cg={N_CG}: {ms:.4f} ms; kernel launches per step {per_step} ({card})")
     sys.stdout.flush()
     return times
 
@@ -320,35 +639,43 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA card",
               file=sys.stderr)
         return 1
-    from tabmat_torch.ops import sandwich_kernel as sk
-
     device = torch.device("cuda", 0)
     card = phase_environment()
     phase_build()
     max_abs = phase_kernels(device, N, K, EDGE_N, EDGE_KS)
+    max_abs.update(phase_cat_kernels(device, N))
 
-    sk.reset_launch_counts()
-    report = phase_main_path(device, N, K)
-    launches = dict(sk.launches)
-    print(f"  sandwich_launches during fit_glm: {report['fit_launches']}; "
-          f"launches in the main path: {launches}")
-    if report["fit_launches"] == 0 or 0 in launches.values():
-        raise AssertionError("the main path did not launch every kernel")
+    reset_launch_counts()
+    phase_main_path(device, N, K)
+    dense_launches = launch_counts()
+    print(f"  kernel launches in the dense main path: {dense_launches}")
+    if any(dense_launches[name] == 0 for name in DENSE_KERNELS):
+        raise AssertionError("the dense main path did not launch each of its kernels")
 
-    times = phase_times(device, N, K, card)
-    kernels = [
-        {
+    reset_launch_counts()
+    mixed = phase_mixed_path(N, MIX_KD, MIX_LEVELS)
+    mixed_launches = launch_counts()
+    print(f"  kernel launches in the mixed main path: {mixed_launches}")
+    if 0 in mixed_launches.values():
+        raise AssertionError("the mixed main path did not launch every kernel")
+
+    times = phase_times(device, N, K, card, mixed)
+    kernels = []
+    for name, (source, replaces) in KERNELS.items():
+        bound_ms, bound_by = times[name]["bound"]
+        kernels.append({
             "name": name,
             "route": "cuda",
-            "source": KERNEL_SOURCE,
-            "replaces": REPLACES[name],
-            "launches": launches[name],
+            "source": source,
+            "replaces": replaces,
+            "launches": dense_launches[name] + mixed_launches[name],
             "max_abs_err": max_abs[name],
             "ms": times[name]["kernel"],
             "plain_ms": times[name]["plain"],
-        }
-        for name in REPLACES
-    ]
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": times[name]["library"],
+        })
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -3,17 +3,22 @@
 The same matrix API as ``tabmat_tpu`` — ``matvec``, ``transpose_matvec``
 and the sandwich product ``Xᵀ diag(d) X`` with active-set restriction,
 weighted standardization, and the GLM solver on top — held in torch
-tensors.  On a CUDA device the sandwich runs a hand-written Hopper kernel
-(``csrc/sandwich.cu``), built with ``nvcc`` at first use.
+tensors.  Arrays go to the CUDA card unless the caller asks for the CPU
+(``device="cpu"``, or CPU tensors).  On the card the sandwich, the
+categorical gather and the segment sum run hand-written Hopper kernels
+(``csrc/*.cu``), built with ``nvcc`` at first use.
 
-This slice carries the dense main path: ``DenseMatrix``,
-``StandardizedMatrix`` over it, ``hstack``/``as_tabmat`` for dense inputs,
-and ``fit_glm``/``GeneralizedLinearRegressor``.  It never imports JAX.
+The port carries ``DenseMatrix``, ``CategoricalMatrix``, ``SplitMatrix`` of
+both, ``StandardizedMatrix``, ``hstack``/``as_tabmat``, and
+``fit_glm``/``GeneralizedLinearRegressor`` on all of them.  Sparse matrices
+are still to come.  It never imports JAX.
 """
 
 from .models import (  # noqa: F401
+    CategoricalMatrix,
     DenseMatrix,
     MatrixBase,
+    SplitMatrix,
     StandardizedMatrix,
     as_tabmat,
     hstack,
@@ -24,8 +29,10 @@ from .glm import GeneralizedLinearRegressor, fit_glm  # noqa: F401
 __version__ = "0.1.0"
 
 __all__ = [
+    "CategoricalMatrix",
     "DenseMatrix",
     "MatrixBase",
+    "SplitMatrix",
     "StandardizedMatrix",
     "DiagonalResult",
     "as_tabmat",

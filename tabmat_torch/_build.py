@@ -5,7 +5,8 @@ shared library for Hopper (``sm_90a``), loaded with :mod:`ctypes`.  The
 library lives under ``build/tabmat_torch/<hash>/`` next to the package, where
 the hash covers the source and the flags, so an edited source rebuilds and
 an unchanged one is reused.  Nothing is built at import time: the CPU paths
-never need ``nvcc``.
+never need ``nvcc``.  :func:`build_all` runs one ``nvcc`` per source, all at
+once.
 """
 
 import ctypes
@@ -15,6 +16,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -24,7 +26,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards _locks
+_locks: dict = {}  # name -> lock held while that source builds and loads
 _libraries: dict = {}
 # name -> {"path", "seconds" (None when an earlier build was reused), "log"}
 build_info: dict = {}
@@ -75,6 +78,8 @@ def _compile(src: Path, so: Path) -> dict:
 def library(name: str) -> ctypes.CDLL:
     """Build (once per source hash) and load ``csrc/<name>.cu``."""
     with _lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         lib = _libraries.get(name)
         if lib is not None:
             return lib
@@ -92,3 +97,34 @@ def library(name: str) -> ctypes.CDLL:
         _libraries[name] = lib
         build_info[name] = info
         return lib
+
+
+def build_all(names) -> None:
+    """Build and load several sources at once: one ``nvcc`` each, in parallel."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        for future in [pool.submit(library, name) for name in names]:
+            future.result()
+
+
+def bind(name: str, signatures: dict) -> ctypes.CDLL:
+    """``library(name)`` with each C function of ``signatures`` typed.
+
+    ``signatures`` maps a symbol to its ``argtypes``; every function returns
+    a CUDA error code (``c_int``).  ``tabmat_cuda_error_string`` is typed too.
+    """
+    lib = library(name)
+    for symbol, argtypes in signatures.items():
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.tabmat_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.tabmat_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise ``RuntimeError`` when a C function of ``lib`` returned an error."""
+    if err != 0:
+        msg = lib.tabmat_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")

@@ -1,0 +1,42 @@
+"""Host helpers for the categorical plans, in numpy.
+
+The port's own copy of ``counting_argsort`` and ``combine_codes``
+(``tabmat_tpu/_native/__init__.py:89-115, 222-250``).  The JAX package runs
+them in a native library with numpy fallbacks; the port keeps the numpy
+versions only.  They run once per matrix or design, outside any step.
+"""
+
+import numpy as np
+
+
+def counting_argsort(keys: np.ndarray, num_segments: int):
+    """Stable argsort + segment bounds for bounded int keys.
+
+    Returns ``(perm, bounds)``, int32 ``(n,)`` and ``(num_segments + 1,)``:
+    segment ``s`` occupies ``perm[bounds[s]:bounds[s+1]]``.  Negative keys
+    (missing and ``drop_first`` sentinels) sort to the front, before
+    ``bounds[0]``, and fall in no segment.
+    """
+    keys = np.ascontiguousarray(keys, dtype=np.int32)
+    perm = np.argsort(keys, kind="stable").astype(np.int32)
+    bounds = np.searchsorted(
+        keys[perm], np.arange(num_segments + 1, dtype=np.int64)
+    ).astype(np.int32)
+    return perm, bounds
+
+
+def combine_codes(a: np.ndarray, b: np.ndarray, k2: int) -> np.ndarray:
+    """Combined categorical cross keys: ``a*k2 + b`` where both valid, else -1.
+
+    Returns int32.  Raises ``OverflowError`` when ``max(a)*k2 + max(b)``
+    does not fit in int32, so a key never wraps around.
+    """
+    a = np.ascontiguousarray(a, dtype=np.int32)
+    b = np.ascontiguousarray(b, dtype=np.int32)
+    if len(a) and int(a.max()) * k2 + max(int(b.max()), 0) >= 2**31:
+        raise OverflowError(
+            f"combined categorical key space {int(a.max()) + 1}*{k2} exceeds "
+            "int32; reduce the category product below 2**31"
+        )
+    out = np.where((a >= 0) & (b >= 0), a.astype(np.int64) * k2 + b, -1)
+    return out.astype(np.int32)

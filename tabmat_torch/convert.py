@@ -2,16 +2,21 @@
 
 The conversion duck-types the reference objects and goes through host
 numpy, so this module never imports JAX: a ``DenseMatrix`` is read through
-``unpack()`` and its names, a ``StandardizedMatrix`` through ``mat``,
-``shift`` and ``mult``, a fitted ``GeneralizedLinearRegressor`` through its
-parameters and ``coef_``/``intercept_``/``n_iter_``, and an array (a beta,
-say) becomes a tensor.
+``unpack()`` and its names, a ``CategoricalMatrix`` through its codes,
+categories, ``drop_first``, missing method and names, a ``SplitMatrix``
+through its blocks and their column indices, a ``StandardizedMatrix``
+through ``mat``, ``shift`` and ``mult``, a fitted
+``GeneralizedLinearRegressor`` through its parameters and
+``coef_``/``intercept_``/``n_iter_``, and an array (a beta, say) becomes a
+tensor.
 """
 
 import numpy as np
 
 from .glm import GeneralizedLinearRegressor
+from .models.categorical import CategoricalMatrix
 from .models.dense import DenseMatrix
+from .models.split import SplitMatrix
 from .models.standardized import StandardizedMatrix
 from .utils.arrays import to_tensor
 
@@ -24,7 +29,7 @@ _ESTIMATOR_PARAMS = (
 def from_tabmat_tpu(obj, device=None):
     """The tabmat_torch twin of a ``tabmat_tpu`` matrix, estimator or array.
 
-    ``device=None`` means ``torch.get_default_device()``.
+    ``device=None`` means the CUDA card; ``device="cpu"`` asks for the CPU.
     """
     kind = type(obj).__name__
     if kind == "StandardizedMatrix":
@@ -40,9 +45,27 @@ def from_tabmat_tpu(obj, device=None):
             term_names=obj.get_names("term"),
             device=device,
         )
+    if kind == "CategoricalMatrix":
+        return CategoricalMatrix(
+            np.asarray(obj.indices),
+            categories=np.asarray(obj.categories),
+            drop_first=obj.drop_first,
+            dtype=obj.dtype,
+            column_name=obj._colname,
+            term_name=obj._term,
+            column_name_format=obj._colname_format,
+            cat_missing_method=obj._missing_method,
+            cat_missing_name=obj._missing_category,
+            device=device,
+        )
+    if kind == "SplitMatrix":
+        return SplitMatrix(
+            [from_tabmat_tpu(m, device) for m in obj.matrices],
+            [np.asarray(idx) for idx in obj.indices],
+        )
     if kind == "GeneralizedLinearRegressor":
         est = GeneralizedLinearRegressor(
-            **{name: getattr(obj, name) for name in _ESTIMATOR_PARAMS}
+            **{name: getattr(obj, name) for name in _ESTIMATOR_PARAMS}, device=device
         )
         for name in ("coef_", "intercept_", "n_iter_"):
             if hasattr(obj, name):
@@ -52,6 +75,6 @@ def from_tabmat_tpu(obj, device=None):
     if hasattr(obj, "__array__"):
         return to_tensor(np.asarray(obj), device=device)
     raise NotImplementedError(
-        f"converting a tabmat_tpu {kind} is not supported yet: categorical, "
-        "sparse and split matrices are ROADMAP A2-A4"
+        f"converting a tabmat_tpu {kind} is not supported yet: sparse matrices "
+        "are ROADMAP A4"
     )

@@ -138,10 +138,13 @@ def _f32_hessian_scale(X32, w: torch.Tensor) -> torch.Tensor:
     weights would overflow float32 (large Poisson or Gamma weights, or
     sample weights) the scaled Hessian still fits.  This is the port's use of
     the reference's exponent prepass (``pallas_sandwich_v4._max_prepass``),
-    which keeps the TPU's narrow planes in range in the same way.  A zero,
-    inf or NaN maximum leaves ``s = 1``.  No host sync.
+    which keeps the TPU's narrow planes in range in the same way.  The
+    design gives a bound of that maximum (the prepass kernel on dense
+    columns, ``max |w|`` on one-hot columns); any power of two at or above
+    it keeps the scale exact.  A zero, inf or NaN bound leaves ``s = 1``.
+    No host sync.
     """
-    m = X32.column_absmax(w).amax()
+    m = X32.absmax_bound(w)
     e = torch.clamp(torch.ceil(torch.log2(m)), min=0.0)
     return torch.where(torch.isfinite(e), torch.exp2(-e), torch.ones_like(e))
 
@@ -295,12 +298,15 @@ def fit_glm(
     offset=None,
     P1=None,
     P2=None,
+    device=None,
 ):
-    """Fit a GLM by IRLS; accepts numpy arrays, tensors, a DenseMatrix or a
-    StandardizedMatrix over one.
+    """Fit a GLM by IRLS; accepts numpy arrays, tensors, a DenseMatrix, a
+    CategoricalMatrix, a SplitMatrix of both, or a StandardizedMatrix over
+    one of them.
 
-    Matrices become a :class:`DeviceDesign` on their own device; a numpy
-    array goes to ``torch.get_default_device()``.  ``offset`` adds a fixed
+    Matrices become a :class:`DeviceDesign` on their own device; a tensor
+    stays on its device; a numpy array goes to ``device``, which defaults
+    to the CUDA card (``device="cpu"`` asks for the CPU).  ``offset`` adds a fixed
     term to the linear predictor.  ``P1``/``P2`` are per-feature penalty
     multipliers in glum's convention: the effective penalties are
     ``l1·P1[j]`` and ``l2·P2[j]``.
@@ -315,7 +321,7 @@ def fit_glm(
     if isinstance(X, (MatrixBase, StandardizedMatrix)):
         X = DeviceDesign.from_matrix(X)
     if not isinstance(X, DeviceDesign):
-        X = to_tensor(X)
+        X = to_tensor(X, device=device)
         if not X.is_floating_point():
             X = X.to(DEFAULT_DTYPE)
     beta = torch.zeros(X.shape[1], dtype=X.dtype, device=X.device)
@@ -395,9 +401,10 @@ def _not_ported_input(what: str) -> NotImplementedError:
 class GeneralizedLinearRegressor:
     """Minimal sklearn-style GLM estimator over tabmat_torch matrices.
 
-    Accepts numpy arrays, tensors, a DenseMatrix, or a StandardizedMatrix
-    (with ``fit_intercept=False``; prepending the intercept column to it
-    needs SplitMatrix, ROADMAP A3).  DataFrames and formulas are ROADMAP A5.
+    Accepts numpy arrays, tensors, a DenseMatrix, a CategoricalMatrix, a
+    SplitMatrix, or a StandardizedMatrix (with ``fit_intercept=False``: as
+    in the reference, the intercept column cannot be stacked beside it).
+    DataFrames and formulas are ROADMAP A5.
 
     Parameters
     ----------
@@ -405,6 +412,7 @@ class GeneralizedLinearRegressor:
     l2: ridge penalty strength
     fit_intercept: prepend a constant column
     max_iter / tol / n_cg: IRLS and inner-CG controls
+    device: where numpy inputs go; None means the CUDA card
     """
 
     def __init__(
@@ -418,6 +426,7 @@ class GeneralizedLinearRegressor:
         n_cg: int = 20,
         inner_precision: str = "float32",
         formula: str = None,
+        device=None,
     ):
         family = _FAMILY_ALIASES.get(family, family)
         if family not in FAMILIES and not family.startswith("tweedie"):
@@ -433,6 +442,7 @@ class GeneralizedLinearRegressor:
         self.n_cg = n_cg
         self.inner_precision = inner_precision
         self.formula = formula
+        self.device = device
 
     @staticmethod
     def _supported(X) -> bool:
@@ -449,7 +459,7 @@ class GeneralizedLinearRegressor:
             raise _not_ported_input(f"fitting on a {type(X).__name__}")
         if self.fit_intercept:
             ones = np.ones((X.shape[0], 1), dtype=as_numpy_dtype(X.dtype))
-            X = hstack([ones, X])
+            X = hstack([ones, X], device=self.device)
         return X
 
     def _penalty_scale(self, k_total, has_intercept):
@@ -478,6 +488,7 @@ class GeneralizedLinearRegressor:
             l1=self.l1,
             inner_precision=self.inner_precision,
             penalty_scale=self._penalty_scale(design.shape[1], self.fit_intercept),
+            device=self.device,
         )
         beta = beta.cpu().numpy()
         if self.fit_intercept:

@@ -43,12 +43,13 @@ class DenseMatrix(MatrixBase):
     """A dense matrix stored in one contiguous torch tensor.
 
     ``device=None`` keeps a tensor input on its own device and puts other
-    inputs on ``torch.get_default_device()``.
+    inputs on the CUDA card (raising without one); ``device="cpu"`` asks
+    for the CPU.
 
     Examples
     --------
     >>> import numpy as np, tabmat_torch as tt
-    >>> X = tt.DenseMatrix(np.array([[1.0, 2.0], [3.0, 4.0], [5.0, 6.0]]))
+    >>> X = tt.DenseMatrix(np.array([[1.0, 2.0], [3.0, 4.0], [5.0, 6.0]]), device="cpu")
     >>> X.shape
     (3, 2)
     >>> X.matvec(np.array([1.0, 10.0]))
@@ -220,6 +221,14 @@ class DenseMatrix(MatrixBase):
             cols_np = set_up_rows_or_cols(cols, self.shape[1])
         S = dense_ops.sandwich_restricted(self._array, d_t, mask, cols_np)
         return result_like(d, S)
+
+    def _cross_sandwich(self, other, d, rows=None, L_cols=None, R_cols=None):
+        """``X[:, L_cols].T @ diag(d) @ other[:, R_cols]`` for a categorical ``other``."""
+        from .categorical import CategoricalMatrix
+
+        if isinstance(other, CategoricalMatrix):
+            return other._cross_sandwich(self, d, rows, R_cols, L_cols).T
+        raise TypeError(f"no cross sandwich of a DenseMatrix with {type(other).__name__}")
 
     def _get_col_stds(self, weights, col_means) -> np.ndarray:
         """Weighted column standard deviations (shifted, robust form)."""

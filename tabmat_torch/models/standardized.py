@@ -102,6 +102,11 @@ class StandardizedMatrix:
             mult = torch.as_tensor(self.mult, device=like.device, dtype=dtype)
         return like.to(dtype), shift, mult
 
+    @property
+    def device(self):
+        """The device of the inner matrix."""
+        return self.mat.device
+
     # -- core ops --------------------------------------------------------
 
     def matvec(self, other_mat, cols: Optional[np.ndarray] = None, out=None):

@@ -196,22 +196,16 @@ def _library():
     if _lib is None:
         from .. import _build
 
-        lib = _build.library("sandwich")
-        for symbol in _SYMBOLS.values():
-            getattr(lib, symbol).argtypes = _ARGTYPES
-            getattr(lib, symbol).restype = ctypes.c_int
-        lib.tabmat_sandwich_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_void_p]
-        lib.tabmat_sandwich_blocks_per_sm.restype = ctypes.c_int
-        lib.tabmat_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.tabmat_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        signatures = {symbol: _ARGTYPES for symbol in _SYMBOLS.values()}
+        signatures["tabmat_sandwich_blocks_per_sm"] = [ctypes.c_int, ctypes.c_void_p]
+        _lib = _build.bind("sandwich", signatures)
     return _lib
 
 
 def _raise_on(lib, err: int) -> None:
-    if err != 0:
-        msg = lib.tabmat_cuda_error_string(err).decode()
-        raise RuntimeError(f"sandwich.cu kernel failed: CUDA error {err} ({msg})")
+    from .. import _build
+
+    _build.raise_on(lib, err, "sandwich.cu kernel")
 
 
 def _launch(lib, name, X, d, out, partial, n, k, splits, rows_per_split) -> None:

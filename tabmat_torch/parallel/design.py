@@ -1,72 +1,206 @@
-"""DeviceDesign: a dense design as the operator the GLM layer drives.
+"""DeviceDesign: a design matrix as the operator the GLM layer drives.
 
-Port of the dense-block part of ``tabmat_tpu/parallel/design.py``.  The
-reference turns any MatrixBase into a jit-compatible pytree of blocks; the
-port runs eagerly, and this slice carries one kind of block: a dense X,
-optionally standardized (``x -> mult * x + shift`` per column).
-Categorical, sparse and split designs are ROADMAP A2-A4.
+Port of ``tabmat_tpu/parallel/design.py`` for dense and categorical blocks.
+``DeviceDesign.from_matrix`` turns a DenseMatrix, a CategoricalMatrix, a
+SplitMatrix of both, or a StandardizedMatrix over one of them into blocks of
+device tensors, with ``@``, ``.T @`` and an explicit ``sandwich`` so that
+``glm.irls_step`` drives it.  The reference traces the whole step into one
+XLA program; the port runs eagerly, a few kernels per op.
 
-``sandwich`` calls ``dense_ops.sandwich`` in both dtypes, so the explicit
-IRLS Hessian runs the CUDA kernel at f64 and at f32.  The reference used the
-v4 Pallas kernel at f64 and a jnp einsum at f32 (``design.py:728-765``).
-``column_absmax`` runs the range prepass that scales the f32 Hessian.
+Blocks (at most one of each; a SplitMatrix fuses its dense blocks into one):
+
+- dense: X (n, kd).  matvec and tmv are ``torch.matmul``; the sandwich
+  diagonal cell is the CUDA sandwich, ``column_absmax`` the range prepass.
+- cat: every categorical of the design stacked into one block, as the
+  reference's ``catstack`` (``design.py:36-48``) does, so that an op costs
+  the same launches for any number of categoricals: one gather over the
+  stacked codes (matvec), one segment sum over the stacked plan (tmv, the
+  sandwich diagonals, the cat×dense cells), and one segment sum per pair of
+  categoricals over their combined codes (the cat×cat cells).  One
+  categorical is the stack of one.
+
+Sparse blocks are ROADMAP A4.
 """
 
+import numpy as np
 import torch
 
-from ..ops import dense_ops, sandwich_kernel
+from ..models.categorical import CategoricalMatrix
+from ..ops import dense_ops, gather_kernel, sandwich_kernel, segments
+
+# The explicit sandwich needs a full K1·K2-segment plan for every pair of
+# categoricals: the product of their widths must be at most this (the
+# reference's bound, ``design.py:90-94``, and the matrices' own).
+CROSS_MAX_SEGMENTS = CategoricalMatrix._CROSS_DENSE_PLAN_MAX
+
+
+class _DenseBlock:
+    """Dense columns ``X`` (n, kd) at global column ``positions``."""
+
+    kind = "dense"
+
+    def __init__(self, X: torch.Tensor, positions: np.ndarray):
+        self.X = X
+        self.width = X.shape[1]
+        self.positions = positions
+
+    def astype_float(self, dtype) -> "_DenseBlock":
+        return _DenseBlock(self.X.to(dtype), self.positions)
+
+    def matvec(self, v):
+        return dense_ops.matvec(self.X, v)
+
+    def tmv(self, r):
+        return dense_ops.transpose_matvec(self.X, r)
+
+
+class _CatBlock:
+    """Categoricals stacked into one block (the reference's catstack).
+
+    - ``codes`` (C·n,) int32: each categorical's effective codes, offset by
+      the widths before it; an invalid code becomes the pad code ``width``,
+      which the gather reads as 0;
+    - ``plan``: the categoricals' plans stacked, one segment per column;
+    - ``cross``: ``(a, b) → SegmentPlan`` over the combined codes of
+      categoricals a < b, one segment per cell of their (w_a, w_b) block.
+    """
+
+    kind = "cat"
+
+    def __init__(self, cats, positions: np.ndarray):
+        self.widths = tuple(m.shape[1] for m in cats)
+        self.width = sum(self.widths)
+        self.positions = positions
+        self.n = cats[0].shape[0]
+        device = cats[0].device
+        codes, off = [], 0
+        for m in cats:
+            eff = m._eff_codes_np
+            codes.append(np.where(eff >= 0, eff + off, self.width).astype(np.int32))
+            off += m.shape[1]
+        self.codes = torch.as_tensor(np.concatenate(codes), device=device)
+        self.plan = segments.stack([m.plan for m in cats])
+        self.cross = {}
+        if all(
+            wa * wb <= CROSS_MAX_SEGMENTS
+            for a, wa in enumerate(self.widths)
+            for wb in self.widths[a + 1 :]
+        ):
+            # the matrices' own cross plans, so a plan is built once per pair
+            for a in range(len(cats)):
+                for b in range(a + 1, len(cats)):
+                    self.cross[(a, b)], _ = cats[a]._cross_plan(cats[b])
+
+    @property
+    def has_cross_plans(self) -> bool:
+        k = len(self.widths)
+        return len(self.cross) == k * (k - 1) // 2
+
+    def matvec(self, v):
+        return gather_kernel.gather(v, self.codes, self.n)
+
+    def tmv(self, r):
+        return self.plan.sum(r)
+
+    def sandwich(self, w, wX):
+        """The cat rows of the Hessian: ``(cat×dense cells (width, kd) or
+        None, cat×cat block (width, width))``."""
+        H = torch.zeros((self.width, self.width), dtype=w.dtype, device=w.device)
+        H.diagonal().copy_(self.plan.sum(w))
+        offsets = np.concatenate([[0], np.cumsum(self.widths)])
+        for (a, b), plan in self.cross.items():
+            cell = plan.sum(w).reshape(self.widths[a], self.widths[b])
+            ra = slice(offsets[a], offsets[a + 1])
+            rb = slice(offsets[b], offsets[b + 1])
+            H[ra, rb] = cell
+            H[rb, ra] = cell.T
+        cross_dense = None if wX is None else self.plan.sum2d(wX)
+        return cross_dense, H
 
 
 class DeviceDesign:
-    """A dense (optionally standardized) design on one device."""
+    """A dense and/or categorical design on one device."""
 
     # widest design for which the explicit (k, k) Hessian is built
     SANDWICH_MAX_COLS = 4096
 
-    def __init__(self, X: torch.Tensor, shift=None, mult=None):
-        self.X = X
-        self.shape = tuple(X.shape)
+    def __init__(self, blocks, n_rows: int, n_cols: int, dtype: torch.dtype,
+                 shift=None, mult=None):
+        self.blocks = blocks
+        self.shape = (n_rows, n_cols)
+        self.dtype = dtype
         self.shift = shift  # standardization: x -> mult*x + shift (per col)
         self.mult = mult
-        self._f32 = None  # the float32 copy, built once by astype_float
+        self._f32 = None  # the float32 design, built once by astype_float
+        order = np.concatenate([b.positions for b in blocks])
+        self._identity_order = bool(np.array_equal(order, np.arange(n_cols)))
+        device = self.device
+        # v in block order = v[_gather_v]; block outputs in global order =
+        # concat[_index_map]
+        self._gather_v = torch.as_tensor(order.astype(np.int64), device=device)
+        self._index_map = torch.as_tensor(
+            np.argsort(order, kind="stable").astype(np.int64), device=device
+        )
 
     @classmethod
     def from_matrix(cls, mat) -> "DeviceDesign":
-        """Convert a DenseMatrix or a StandardizedMatrix over one."""
+        """Convert a DenseMatrix, a CategoricalMatrix, a SplitMatrix of them,
+        or a StandardizedMatrix over one of those."""
         from ..models.dense import DenseMatrix
+        from ..models.split import SplitMatrix
         from ..models.standardized import StandardizedMatrix
+        from ..utils import as_torch_dtype
 
         if isinstance(mat, StandardizedMatrix):
             inner = cls.from_matrix(mat.mat)
+
             def param(x):
-                return torch.as_tensor(x, device=inner.X.device, dtype=inner.X.dtype)
+                return torch.as_tensor(x, device=inner.device, dtype=inner.dtype)
 
             mult = None if mat.mult is None else param(mat.mult)
-            return cls(inner.X, param(mat.shift), mult)
+            return cls(inner.blocks, *inner.shape, inner.dtype, param(mat.shift), mult)
+        if not isinstance(mat, (DenseMatrix, CategoricalMatrix, SplitMatrix)):
+            raise TypeError(f"Cannot convert {type(mat).__name__} to a DeviceDesign")
+        n, k = mat.shape
         if isinstance(mat, DenseMatrix):
-            return cls(mat.unpack())
-        raise NotImplementedError(
-            f"DeviceDesign of a {type(mat).__name__} is not ported to "
-            "tabmat_torch yet: categorical, sparse and split designs are "
-            "ROADMAP A2-A4"
-        )
-
-    @property
-    def dtype(self) -> torch.dtype:
-        return self.X.dtype
+            X = mat.unpack()
+            return cls([_DenseBlock(X, np.arange(k))], n, k, X.dtype)
+        if isinstance(mat, CategoricalMatrix):
+            return cls([_CatBlock([mat], np.arange(k))], n, k, as_torch_dtype(mat.dtype))
+        # a SplitMatrix: its blocks are dense or categorical (sparse is A4)
+        blocks, cats, cat_positions = [], [], []
+        for m, idx in zip(mat.matrices, mat.indices):
+            if isinstance(m, DenseMatrix):
+                blocks.append(_DenseBlock(m.unpack(), idx))
+            else:
+                cats.append(m)
+                cat_positions.append(idx)
+        if cats:
+            blocks.append(_CatBlock(cats, np.concatenate(cat_positions)))
+        return cls(blocks, n, k, as_torch_dtype(mat.dtype))
 
     @property
     def device(self) -> torch.device:
-        return self.X.device
+        b = self.blocks[0]
+        return b.X.device if b.kind == "dense" else b.codes.device
+
+    @property
+    def X(self):
+        """The dense block's tensor, or None."""
+        dense = self._block("dense")
+        return None if dense is None else dense.X
+
+    def _block(self, kind):
+        return next((b for b in self.blocks if b.kind == kind), None)
 
     def astype_float(self, dtype) -> "DeviceDesign":
         """The design with its float tensors cast to ``dtype``.
 
-        The float32 copy of X is built on the first call and kept, so an
-        IRLS loop with a float32 inner solve casts X once per design instead
-        of once per step (200 MB of traffic per step at 1M x 50).
+        The float32 design is built on the first call and kept, so an IRLS
+        loop with a float32 inner solve casts the dense block once per
+        design instead of once per step.  The codes and plans are shared.
         """
-        if dtype == self.X.dtype:
+        if dtype == self.dtype:
             return self
         if dtype != torch.float32:
             raise ValueError(f"astype_float supports float32, got {dtype}")
@@ -75,22 +209,33 @@ class DeviceDesign:
             def cast(x):
                 return None if x is None else x.to(dtype)
 
-            self._f32 = DeviceDesign(self.X.to(dtype), cast(self.shift), cast(self.mult))
+            blocks = [b.astype_float(dtype) if b.kind == "dense" else b for b in self.blocks]
+            d = object.__new__(DeviceDesign)
+            d.__dict__.update(self.__dict__)
+            d.blocks, d.dtype, d.shift, d.mult = blocks, dtype, cast(self.shift), cast(self.mult)
+            self._f32 = d
         return self._f32
 
-    # -- ops -----------------------------------------------------------------
+    # -- ops -------------------------------------------------------------------
 
     def matvec(self, v: torch.Tensor) -> torch.Tensor:
         """``X @ v``."""
         v_eff = v * self.mult if self.mult is not None else v
-        out = dense_ops.matvec(self.X, v_eff)
+        v_blocks = v_eff if self._identity_order else v_eff[self._gather_v]
+        out, off = None, 0
+        for b in self.blocks:
+            part = b.matvec(v_blocks[off : off + b.width])
+            out = part if out is None else out + part
+            off += b.width
         if self.shift is not None:
             out = out + torch.dot(self.shift, v)
         return out
 
     def transpose_matvec(self, r: torch.Tensor) -> torch.Tensor:
         """``X.T @ r``."""
-        out = dense_ops.transpose_matvec(self.X, r)
+        segs = [b.tmv(r) for b in self.blocks]
+        flat = segs[0] if len(segs) == 1 else torch.cat(segs)
+        out = flat if self._identity_order else flat[self._index_map]
         if self.mult is not None:
             out = out * self.mult
         if self.shift is not None:
@@ -102,25 +247,51 @@ class DeviceDesign:
         """True when the explicit sandwich is available.
 
         Standardized designs take the Hessian-vector path, as in the
-        reference.
+        reference, and so do designs whose cat×cat cross plans were too
+        large to build.
         """
+        cat = self._block("cat")
         return (
             self.shape[1] <= self.SANDWICH_MAX_COLS
             and self.shift is None
             and self.mult is None
+            and (cat is None or cat.has_cross_plans)
         )
 
     def sandwich(self, w: torch.Tensor) -> torch.Tensor:
-        """Explicit ``Xᵀ diag(w) X`` → (k, k), through the CUDA kernel on a GPU."""
-        return dense_ops.sandwich(self.X, w)
+        """Explicit ``Xᵀ diag(w) X`` → (k, k): the dense cell through the
+        sandwich kernel, the categorical cells through the segment sum."""
+        dense, cat = self._block("dense"), self._block("cat")
+        if cat is None:
+            H = dense_ops.sandwich(dense.X, w)
+        else:
+            wX = None if dense is None else (dense.X * w[:, None]).contiguous()
+            cross_dense, H_cat = cat.sandwich(w, wX)
+            if dense is None:
+                H = H_cat
+            else:
+                H = torch.cat([
+                    torch.cat([dense_ops.sandwich(dense.X, w), cross_dense.T], dim=1),
+                    torch.cat([cross_dense, H_cat], dim=1),
+                ])
+        if self._identity_order:
+            return H
+        return H[self._index_map][:, self._index_map]
 
-    def column_absmax(self, w: torch.Tensor) -> torch.Tensor:
-        """``max_i |X[i, j]| · |w[i]|`` → (k,) float64, for the float32 copy.
+    def absmax_bound(self, w: torch.Tensor) -> torch.Tensor:
+        """A float64 bound of ``max_ij |x_ij| · |w_i|``, on the device.
 
-        The CUDA prepass kernel on a GPU; ``w`` is float64, so weights beyond
-        the float32 range give a finite maximum.
+        Dense columns take the range prepass (the CUDA ``column_absmax`` on
+        the float32 copy); a one-hot column's maximum is at most ``max |w|``.
+        NaN propagates.
         """
-        return sandwich_kernel.column_absmax(self.X, w)
+        parts = []
+        dense = self._block("dense")
+        if dense is not None:
+            parts.append(sandwich_kernel.column_absmax(dense.X, w).amax())
+        if self._block("cat") is not None:
+            parts.append(w.abs().amax())
+        return parts[0] if len(parts) == 1 else torch.maximum(*parts)
 
     # operator sugar so glm.irls_step treats designs and tensors alike
     def __matmul__(self, v):

@@ -32,8 +32,9 @@ def to_tensor(x, device=None, dtype=None) -> torch.Tensor:
     """``x`` as a tensor on ``device``.
 
     A tensor keeps its own device when ``device`` is None; anything else goes
-    to ``torch.get_default_device()``.  Host data is always copied, so the
-    result never aliases a caller's numpy buffer.
+    to the CUDA card (:func:`~tabmat_torch._config.resolve_device`).  Host
+    data is always copied, so the result never aliases a caller's numpy
+    buffer.
     """
     dtype = None if dtype is None else as_torch_dtype(dtype)
     if torch.is_tensor(x):

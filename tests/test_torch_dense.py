@@ -36,21 +36,21 @@ def base_array(order="C") -> np.ndarray:
 
 
 def dense_C():
-    return tm.DenseMatrix(base_array("C")), tt.DenseMatrix(base_array("C"))
+    return tm.DenseMatrix(base_array("C")), tt.DenseMatrix(base_array("C"), device="cpu")
 
 
 def dense_F():
-    return tm.DenseMatrix(base_array("F")), tt.DenseMatrix(base_array("F"))
+    return tm.DenseMatrix(base_array("F")), tt.DenseMatrix(base_array("F"), device="cpu")
 
 
 def dense_1d():
-    return tm.DenseMatrix(base_array()[:, 0]), tt.DenseMatrix(base_array()[:, 0])
+    return tm.DenseMatrix(base_array()[:, 0]), tt.DenseMatrix(base_array()[:, 0], device="cpu")
 
 
 def dense_readonly():
     arr = base_array()
     arr.setflags(write=False)
-    return tm.DenseMatrix(arr), tt.DenseMatrix(arr)
+    return tm.DenseMatrix(arr), tt.DenseMatrix(arr, device="cpu")
 
 
 def dense_from_device_array():
@@ -59,26 +59,26 @@ def dense_from_device_array():
 
 def dense_converted():
     ref = tm.DenseMatrix(base_array(), column_names=["a", "b"])
-    return ref, from_tabmat_tpu(ref)
+    return ref, from_tabmat_tpu(ref, device="cpu")
 
 
 def standardized_shift():
     shift = np.array([0.3, -0.1])
     ref = tm.StandardizedMatrix(tm.DenseMatrix(base_array()), shift)
-    return ref, tt.StandardizedMatrix(tt.DenseMatrix(base_array()), shift)
+    return ref, tt.StandardizedMatrix(tt.DenseMatrix(base_array(), device="cpu"), shift)
 
 
 def standardized_shift_scale():
     shift, mult = np.array([0.3, -0.1]), np.array([0.7, 1.3])
     ref = tm.StandardizedMatrix(tm.DenseMatrix(base_array("F")), shift, mult)
-    return ref, tt.StandardizedMatrix(tt.DenseMatrix(base_array("F")), shift, mult)
+    return ref, tt.StandardizedMatrix(tt.DenseMatrix(base_array("F"), device="cpu"), shift, mult)
 
 
 def standardized_converted():
     ref = tm.StandardizedMatrix(
         tm.DenseMatrix(base_array()), np.array([0.2, 0.1]), np.array([2.0, 0.5])
     )
-    return ref, from_tabmat_tpu(ref)
+    return ref, from_tabmat_tpu(ref, device="cpu")
 
 
 ZOO = [
@@ -306,32 +306,32 @@ def test_getcol_astype_names(pair):
 def test_getitem(key):
     arr = np.arange(24.0).reshape(6, 4)
     ref = tm.DenseMatrix(arr, column_names=list("abcd"))
-    port = tt.DenseMatrix(arr, column_names=list("abcd"))
+    port = tt.DenseMatrix(arr, column_names=list("abcd"), device="cpu")
     got, want = port[key], ref[key]
     _close(got.toarray(), want.toarray())
     assert got.column_names == want.column_names
 
 
 def test_zero_sd_cols_standardize():
-    X, _, _ = tt.DenseMatrix(np.ones([100, 1])).standardize(np.full(100, 0.01), True, True)
+    X, _, _ = tt.DenseMatrix(np.ones([100, 1]), device="cpu").standardize(np.full(100, 0.01), True, True)
     np.testing.assert_allclose(X.mult, [1.0])
     assert np.all(np.isfinite(X.toarray()))
 
 
 def test_bad_construction_raises():
     with pytest.raises(ValueError):
-        tt.DenseMatrix(np.ones((2, 2, 2)))
+        tt.DenseMatrix(np.ones((2, 2, 2)), device="cpu")
     with pytest.raises(ValueError):
-        tt.DenseMatrix(np.ones((3, 2)), column_names=["a"])
+        tt.DenseMatrix(np.ones((3, 2)), column_names=["a"], device="cpu")
     with pytest.raises(TypeError):
         tt.StandardizedMatrix(np.ones((3, 2)), np.zeros(2))
     with pytest.raises(ValueError):
-        tt.StandardizedMatrix(tt.DenseMatrix(np.ones((3, 2))), np.zeros(3))
+        tt.StandardizedMatrix(tt.DenseMatrix(np.ones((3, 2)), device="cpu"), np.zeros(3))
 
 
 def test_host_input_is_copied():
     arr = base_array()
-    port = tt.DenseMatrix(arr)
+    port = tt.DenseMatrix(arr, device="cpu")
     arr[0, 0] = 99.0
     assert port.toarray()[0, 0] == 0.0
 
@@ -339,7 +339,7 @@ def test_host_input_is_copied():
 def test_hstack_and_as_tabmat():
     a, b = base_array(), base_array()[:, :1] * 2
     ref = tm.hstack([a, tm.DenseMatrix(b)])
-    port = tt.hstack([a, tt.DenseMatrix(b)])
+    port = tt.hstack([a, tt.DenseMatrix(b, device="cpu")])
     assert isinstance(port, tt.DenseMatrix)
     _close(port.toarray(), ref.toarray())
     assert tt.as_tabmat(port) is port
@@ -353,6 +353,9 @@ def test_not_ported_inputs_raise():
 
     with pytest.raises(NotImplementedError, match="A4"):
         tt.as_tabmat(sps.eye(3, format="csc"))
-    std = tt.StandardizedMatrix(tt.DenseMatrix(base_array()), np.zeros(2))
-    with pytest.raises(NotImplementedError, match="A3"):
+    # as in the reference, a StandardizedMatrix is no block of a SplitMatrix
+    std = tt.StandardizedMatrix(tt.DenseMatrix(base_array(), device="cpu"), np.zeros(2))
+    with pytest.raises(ValueError, match="MatrixBase"):
         tt.hstack([np.ones((8, 1)), std])
+    with pytest.raises(ValueError, match="MatrixBase"):
+        tm.hstack([np.ones((8, 1)), tm.StandardizedMatrix(tm.DenseMatrix(base_array()), np.zeros(2))])

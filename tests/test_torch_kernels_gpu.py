@@ -1,5 +1,5 @@
-"""The CUDA kernels (sandwich and range prepass) against their plain
-versions, on the card.
+"""The CUDA kernels (sandwich, range prepass, gather, segment sum) against
+their plain versions, and the default device, on the card.
 
 Marked ``gpu``: here, without a card, each test skips with its reason.  On
 the card:
@@ -113,3 +113,68 @@ def test_f32_step_with_weights_beyond_float32(cuda):
     assert torch.isfinite(steps["float32"]).all()
     rel = (steps["float32"] - steps["float64"]).abs().max() / steps["float64"].abs().max()
     assert float(rel) < 1e-4
+
+
+def test_default_device_is_the_card(cuda):
+    """Asked for no device, the constructors and the fit put their data on the card."""
+    rng = np.random.default_rng(2)
+    X = rng.standard_normal((1000, 3))
+    codes = rng.integers(0, 5, 1000)
+    assert tt.DenseMatrix(X).device.type == "cuda"
+    cat = tt.CategoricalMatrix(codes, categories=np.arange(5))
+    assert cat.device.type == "cuda"
+    split = tt.SplitMatrix([tt.DenseMatrix(X), cat])
+    assert split.device.type == "cuda"
+    beta, _ = tt.fit_glm(X, X @ np.ones(3), max_iter=2, tol=0.0)
+    assert beta.device.type == "cuda"
+    est = tt.GeneralizedLinearRegressor(max_iter=2).fit(split, rng.random(1000))
+    assert est.coef_.shape == (8,)
+    # numpy input to the estimator: the intercept column and X go to the card
+    est = tt.GeneralizedLinearRegressor(max_iter=2)
+    assert est._design(X).device.type == "cuda"
+    assert np.all(np.isfinite(est.fit(X, rng.random(1000)).coef_))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("C", [1, 2, 3])
+def test_gather_matches_plain_exactly(cuda, C, dtype):
+    from tabmat_torch.ops import gather_kernel as gk
+
+    rng = np.random.default_rng(C)
+    n, width = 100_003, 777
+    codes = torch.as_tensor(rng.integers(-3, width + 3, C * n).astype(np.int32), device=cuda)
+    table = torch.as_tensor(rng.standard_normal(width), dtype=dtype, device=cuda)
+    name = f"gather<{'double' if dtype == torch.float64 else 'float'}>"
+    before = gk.launches[name]
+    got = gk.gather(table, codes, n)
+    assert gk.launches[name] == before + 1
+    assert torch.equal(got, gk.gather_plain(table, codes, n))
+    # an empty table (drop_first of a single level) gathers zeros
+    assert torch.equal(gk.gather(table[:0], codes, n), torch.zeros_like(got))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("m", [1, 5, 11])
+@pytest.mark.parametrize("W", [1, 7, 1000, 300_000])
+def test_segsum_matches_plain_and_repeats(cuda, W, m, dtype):
+    from tabmat_torch.ops import segsum_kernel as ssk
+    from tabmat_torch.ops.segments import build_plan
+
+    rng = np.random.default_rng(W + m)
+    n = 200_003
+    keys = rng.integers(-1, W, n)
+    if W > 2:
+        keys[np.isin(keys, [0, W // 2])] = -1  # empty segments
+    keys[: n // 3] = -1  # a run of sentinels
+    plan = build_plan(keys, W, cuda)
+    shape = (n,) if m == 1 else (n, m)
+    v = torch.as_tensor(rng.standard_normal(shape), dtype=dtype, device=cuda)
+    name = f"segsum<{'double' if dtype == torch.float64 else 'float'}>"
+    before = ssk.launches[name]
+    first, second = ssk.segsum(v, plan), ssk.segsum(v, plan)
+    assert ssk.launches[name] == before + 2
+    assert torch.equal(first, second)
+    want = ssk.segsum_plain(v, plan.perm, plan.bounds)
+    scale = ssk.segsum_plain(v.abs().double(), plan.perm, plan.bounds).clamp_min(1e-300)
+    rel = float(((first.double() - want.double()).abs() / scale).max())
+    assert rel <= TOL[dtype]

@@ -3,10 +3,15 @@
 
 Run from the repository root on a machine with a card:
 
-    python3 tools/profile_irls_step.py [--n 1000000] [--k 50] [--repeats 3]
+    python3 tools/profile_irls_step.py [--design dense|mixed] [--n 1000000]
+        [--k 50] [--levels 1000] [--repeats 3]
 
-For each repeat and each ``inner_precision`` (gaussian, ``n_cg=16``, a
-``DeviceDesign`` over a float64 ``DenseMatrix``) it prints one JSON line:
+``--design dense`` (the default) steps a gaussian GLM on a ``DeviceDesign``
+over an (n, k) float64 ``DenseMatrix``.  ``--design mixed`` steps a poisson
+GLM on the mixed design of ``bench.py:360-371``: a ``SplitMatrix`` of an
+(n, 5) ``DenseMatrix`` and two categoricals of ``--levels`` levels each
+(1,000,000 x 2005 by default).  Both use ``n_cg=16``.  For each repeat and
+each ``inner_precision`` it prints one JSON line:
 
 - ``host_ms``: host-clock step times with a synchronise after each step
   (median, min, max over 20 steps);
@@ -16,7 +21,9 @@ For each repeat and each ``inner_precision`` (gaussian, ``n_cg=16``, a
 - from a ``torch.profiler`` trace of 10 steps: ``kernel_ms`` (device time of
   all kernels per step), ``idle_share`` (1 - kernel time / traced wall
   time), ``launches`` (``cudaLaunchKernel`` calls per step), ``launch_host_ms``
-  (their host time per step) and the five kernels with the most device time.
+  (their host time per step) and the five kernels with the most device time;
+- ``tabmat_launches``: launches per step of each hand-written kernel, from
+  the wrappers' own counts.
 
 The first line is the card's name and power limit.  The full profiler table
 of the last trace goes to ``chiprun_out/profile_irls_step.txt``.
@@ -71,10 +78,52 @@ def profile(step, steps: int = 10):
     }, prof
 
 
+def _kernel_modules():
+    from tabmat_torch.ops import gather_kernel, sandwich_kernel, segsum_kernel
+
+    return sandwich_kernel, gather_kernel, segsum_kernel
+
+
+def tabmat_launches(step) -> dict:
+    """Launches of each hand-written kernel in one ``step()``."""
+    for module in _kernel_modules():
+        module.reset_launch_counts()
+    step()
+    torch.cuda.synchronize()
+    counts = {}
+    for module in _kernel_modules():
+        counts.update({name: c for name, c in module.launches.items() if c})
+    return counts
+
+
+def design_and_target(kind: str, n: int, k: int, levels: int, device):
+    """``(design, y, family)`` for the dense or the mixed design, from a seed."""
+    rng = np.random.default_rng(7)
+    if kind == "dense":
+        X = rng.standard_normal((n, k))
+        design = DeviceDesign.from_matrix(tt.DenseMatrix(X, device=device))
+        y = X @ rng.standard_normal(k) + 0.1 * rng.standard_normal(n)
+        return design, torch.as_tensor(y, device=device), "gaussian"
+    Xd = rng.standard_normal((n, 5))
+    codes = [rng.integers(0, levels, n) for _ in range(2)]
+    split = tt.SplitMatrix(
+        [tt.DenseMatrix(Xd, device=device)]
+        + [tt.CategoricalMatrix(c, categories=np.arange(levels), device=device) for c in codes]
+    )
+    design = DeviceDesign.from_matrix(split)
+    eta = Xd @ (rng.standard_normal(5) * 0.05)
+    for c in codes:
+        eta += (rng.standard_normal(levels) * 0.1)[c]
+    return design, torch.as_tensor(rng.poisson(np.exp(eta)).astype(np.float64), device=device), "poisson"
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--design", choices=("dense", "mixed"), default="dense")
     parser.add_argument("--n", type=int, default=1_000_000)
-    parser.add_argument("--k", type=int, default=50)
+    parser.add_argument("--k", type=int, default=50, help="dense design's width")
+    parser.add_argument("--levels", type=int, default=1000,
+                        help="levels of each categorical of the mixed design")
     parser.add_argument("--repeats", type=int, default=3)
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -87,19 +136,16 @@ def main() -> int:
     print(card, flush=True)
 
     device = torch.device("cuda", 0)
-    rng = np.random.default_rng(7)
-    X = rng.standard_normal((args.n, args.k))
-    design = DeviceDesign.from_matrix(tt.DenseMatrix(X, device=device))
-    y = torch.as_tensor(X @ rng.standard_normal(args.k) + 0.1 * rng.standard_normal(args.n),
-                        device=device)
-    w = torch.ones(args.n, dtype=torch.float64, device=device)
-    b0 = torch.zeros(args.k, dtype=torch.float64, device=device)
+    design, y, family = design_and_target(args.design, args.n, args.k, args.levels, device)
+    n, k = design.shape
+    w = torch.ones(n, dtype=torch.float64, device=device)
+    b0 = torch.zeros(k, dtype=torch.float64, device=device)
 
     prof = None
     for rep in range(args.repeats):
         for inner in ("float64", "float32"):
             def step():
-                return irls_step(design, y, w, b0, family="gaussian", n_cg=N_CG,
+                return irls_step(design, y, w, b0, family=family, n_cg=N_CG,
                                  inner_precision=inner)
 
             for _ in range(3):
@@ -120,11 +166,13 @@ def main() -> int:
             event_ms = start.elapsed_time(stop) / 20
             trace, prof = profile(step)
             print(json.dumps({
-                "repeat": rep, "inner": inner, "n": args.n, "k": args.k, "n_cg": N_CG,
+                "repeat": rep, "design": args.design, "family": family, "inner": inner,
+                "n": n, "k": k, "n_cg": N_CG,
                 "host_ms": {"median": statistics.median(host), "min": min(host), "max": max(host)},
                 "event_ms": event_ms,
                 "idle_share_events": 1.0 - trace["kernel_ms"] / event_ms,
                 **trace,
+                "tabmat_launches": tabmat_launches(step),
                 "card": card,
             }), flush=True)
     out = ROOT / "chiprun_out" / "profile_irls_step.txt"
