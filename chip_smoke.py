@@ -17,9 +17,13 @@ Phases, each printed as it runs:
    control that the f32 limit rejects a TF32-rounded product; the gather at
    1,000,000 rows (codes with sentinels, a stack of two categoricals, and
    sorted bounds), exactly equal; the segment sum at W in {1, 7, 1000,
-   10^6} segments, 1-D and 5 columns, with sentinels and empty segments,
-   within 1e-13 (f64) and 2e-5 (f32) of each segment's sum of |v|, and
-   bit-identical across two launches;
+   10^6} segments, 1-D and 5 columns, with sentinels and empty segments;
+   the sparse segment product on the CSR and CSC layouts of the reference's
+   three sparse shapes (400,000 x 100, 3,000,000 x 3 and 40,000 x 10,000,
+   all at 1%), the pair plan and the stacked (code, column) plan of the
+   sparse main path and its sparse x dense cell (a per-row scale, 5
+   columns).  The sums are held within 1e-13 (f64) and 2e-5 (f32) of each
+   segment's sum of |term|, and bit-identical across two launches;
 4. the dense main path at 1,000,000 x 50 float64: DenseMatrix sandwich,
    matvec and transpose_matvec with and without active sets, standardize and
    the standardized sandwich, then ``fit_glm`` for gaussian and poisson in
@@ -30,15 +34,23 @@ Phases, each printed as it runs:
    CategoricalMatrix matvec, then ``fit_glm`` poisson in both inner
    precisions against the same explicit-Hessian + CG algorithm in
    numpy/scipy;
-6. times from CUDA events after warm-up: each kernel, its plain version and
-   the one PyTorch call that computes the same function, and one
+6. the standalone SparseMatrix at the three sparse shapes, built without
+   ``device=``: matvec and transpose_matvec with active sets and ``out=``,
+   and the sandwich, against scipy; ``sparse_wide``'s sandwich, past both
+   of the port's sandwich budgets, must raise ``NotImplementedError``;
+7. the sparse main path at 1,000,000 x (5 dense + 100 sparse at 1% + 1000 +
+   1000 levels), built without ``device=``: as phase 5;
+8. times from CUDA events after warm-up: each kernel, its plain version and
+   the one PyTorch call that computes the same function (cuSPARSE through
+   ``torch.sparse_csr_tensor`` for the sparse product), and one
    ``irls_step`` on each path in each inner precision, with the kernel
-   launches per mixed step.
+   launches per step.
 
-The launch counts are set to 0 just before each main-path phase (4 and 5)
-and read just after; each path must launch its kernels, and the mixed path
-all seven.  Any failed check raises, so the script exits 0 only when every
-check passed.  The last three lines are the ``kernels`` JSON object, the
+The launch counts are set to 0 just before each main-path phase (4 to 7)
+and read just after; each path must launch its kernels, the mixed path the
+seven of the dense and categorical kernels, and the sparse main path both
+sparse products.  Any failed check raises, so the script exits 0 only when
+every check passed.  The last three lines are the ``kernels`` JSON object, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
 Without CUDA it exits non-zero and prints no result.
 """
@@ -58,7 +70,18 @@ EDGE_KS = (1, 7, 64, 128, 200)
 # categoricals, so the cat x cat cell has 10^6 segments
 MIX_KD, MIX_LEVELS = 5, 1000
 SEG_WS = (1, 7, 1000, 1_000_000)
+# the reference's sparse designs (tabmat_tpu/bench/generate.py:71-73), all
+# at 1%, and the sparse block of the sparse main path (bench.py:282: 100
+# columns at 1%) over that path's 1,000,000 rows
+SPARSE_SHAPES = {"sparse": (400_000, 100), "sparse_narrow": (3_000_000, 3),
+                 "sparse_wide": (40_000, 10_000)}
+SPARSE_DENSITY = 0.01
+SP_KS = 100
 FIT_STEPS = 4
+# the sparse main path's beta after 4 truncated-CG steps still moves by
+# 6e-11 when X moves by 1e-15 (a numpy run on the CPU); after 6 steps by
+# 5e-16, so its check against numpy runs 6 steps
+SPARSE_FIT_STEPS = 6
 N_CG = 16
 # f64: the TPU kernels' own bar was relerr 5.2e-15 at this shape; 1e-13
 # leaves room for a different summation order.  f32: full-f32 FFMA measured
@@ -86,8 +109,11 @@ KERNELS = {
     "gather<float>": ("tabmat_torch/csrc/gather.cu", "tabmat_tpu/ops/pallas_gather.py:89"),
     "segsum<double>": ("tabmat_torch/csrc/segsum.cu", "tabmat_tpu/ops/pallas_segsum_bucketed.py:64"),
     "segsum<float>": ("tabmat_torch/csrc/segsum.cu", "tabmat_tpu/ops/pallas_segsum.py:97"),
+    "spmv<double>": ("tabmat_torch/csrc/spmv.cu", "tabmat_tpu/ops/pallas_tmv_fused.py:179"),
+    "spmv<float>": ("tabmat_torch/csrc/spmv.cu", "tabmat_tpu/ops/pallas_tmv_fused.py:179"),
 }
 DENSE_KERNELS = ("sandwich<double>", "sandwich<float>", "column_absmax")
+SPARSE_KERNELS = ("spmv<double>", "spmv<float>")
 
 # the least time for a function: its bytes over the memory rate, or its
 # operations over the peak rate for the type, whichever is larger (H100 SXM
@@ -104,9 +130,9 @@ def bound(n_bytes: float, n_ops: float):
 
 
 def _kernel_modules():
-    from tabmat_torch.ops import gather_kernel, sandwich_kernel, segsum_kernel
+    from tabmat_torch.ops import gather_kernel, sandwich_kernel, segsum_kernel, spmv_kernel
 
-    return sandwich_kernel, gather_kernel, segsum_kernel
+    return sandwich_kernel, gather_kernel, segsum_kernel, spmv_kernel
 
 
 def reset_launch_counts() -> None:
@@ -163,7 +189,7 @@ def phase_build() -> None:
     from tabmat_torch import _build
 
     t0 = time.perf_counter()
-    names = ("sandwich", "gather", "segsum")
+    names = ("sandwich", "gather", "segsum", "spmv")
     _build.build_all(names)
     print(f"[2] build of {len(names)} sources in parallel: {time.perf_counter() - t0:.2f} s")
     for name in names:
@@ -298,6 +324,140 @@ def phase_cat_kernels(device, n: int, seg_ws=SEG_WS, levels: int = MIX_LEVELS) -
     return max_abs
 
 
+def sparse_designs(shapes=SPARSE_SHAPES, density: float = SPARSE_DENSITY) -> dict:
+    """The reference's sparse designs as scipy CSC, from its seed
+    (``tabmat_tpu/bench/generate.py:54-57``)."""
+    from scipy import sparse as sps
+
+    return {name: sps.random(n, k, density=density, random_state=7, format="csc")
+            for name, (n, k) in shapes.items()}
+
+
+def sparse_block(n: int, ks: int = SP_KS, density: float = SPARSE_DENSITY):
+    """The sparse block of the sparse main path: ``bench.py:282``'s 100
+    columns at 1%, from its seed, over ``n`` rows."""
+    from scipy import sparse as sps
+
+    return sps.random(n, ks, density=density, random_state=0, format="csc")
+
+
+def spmv_cases(device, designs: dict, block, levels: int = MIX_LEVELS, kd: int = MIX_KD,
+               seed: int = 13) -> list:
+    """``(label, plan, a, values, scale)`` in f64 on ``device`` for each
+    shape the sparse product takes: the CSR matvec and CSC tmv of each
+    design, and the pair plan, the stacked (code, column) plan and the
+    sparse x dense cell of the main path's sparse block."""
+    import tabmat_torch as tt
+    from tabmat_torch.ops import sparse_ops
+
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.as_tensor(a, device=device)
+
+    cases = []
+    for name, X in designs.items():
+        n, k = X.shape
+        m = tt.SparseMatrix(X, device=device)
+        data, plan = m._csr_parts()
+        cases.append((f"{name} {n}x{k} CSR matvec", plan, data, t(rng.standard_normal(k)), None))
+        data, plan = m._csc_parts()
+        cases.append((f"{name} {n}x{k} CSC tmv", plan, data, t(rng.standard_normal(n)), None))
+    n, ks = block.shape
+    m = tt.SparseMatrix(block, device=device)
+    w = t(rng.random(n) + 0.05)
+    prod, plan = m._pair_parts()
+    cases.append((f"pair plan {n}x{ks}", plan, prod, w, None))
+    codes = np.concatenate([rng.integers(0, levels, n), rng.integers(0, levels, n) + levels])
+    a, plan, _ = sparse_ops.code_column_plan(codes, 2 * levels, n, block, device)
+    cases.append((f"stacked sparse x cat plan {n}x{ks}, 2x{levels} levels", plan, a, w, None))
+    data, plan = m._csc_parts()
+    cases.append((f"sparse x dense cell {n}x{ks} x {kd}, scaled", plan, data,
+                  t(rng.standard_normal((n, kd))), w))
+    return cases
+
+
+def phase_spmv_kernels(device, cases) -> dict:
+    """The sparse segment product against its plain version; returns
+    max|kernel - plain| by instantiation over all cases."""
+    from tabmat_torch.ops import spmv_kernel as sk
+
+    print(f"[3] sparse segment product vs plain on {device}", flush=True)
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    max_abs = {name: 0.0 for name in SPARSE_KERNELS}
+    for label, plan, a, values, scale in cases:
+        for dtype, tol in ((torch.float64, F64_TOL), (torch.float32, F32_TOL)):
+            name = f"spmv<{'double' if dtype == torch.float64 else 'float'}>"
+            A, V = a.to(dtype), values.to(dtype)
+            S = None if scale is None else scale.to(dtype)
+            before = sk.launches[name]
+            first, second = sk.spmv(V, plan, A, S), sk.spmv(V, plan, A, S)
+            if device.type == "cuda" and sk.launches[name] != before + 2:
+                raise AssertionError(f"{name} {label} launched no kernel")
+            want = sk.spmv_plain(V, plan.perm, plan.bounds, A, S)
+            mag = sk.spmv_plain(V.abs().double(), plan.perm, plan.bounds, A.abs().double(),
+                                None if S is None else S.abs().double())
+            sync()
+            if not torch.equal(first, second):
+                raise AssertionError(f"{name} {label}: two launches differ")
+            diff = (first.double() - want.double()).abs()
+            max_abs[name] = max(max_abs[name], float(diff.max()))
+            rel = float((diff / mag.clamp_min(torch.finfo(torch.float64).tiny)).max())
+            _check(f"{name} {label} max|diff|/sum|term| (repeats exactly)", rel, tol)
+    return max_abs
+
+
+def phase_sparse_standalone(designs: dict, device=None, seed: int = 2) -> None:
+    """The standalone SparseMatrix at the reference's sparse shapes against
+    scipy; ``device=None`` builds without ``device=`` (the card)."""
+    import tabmat_torch as tt
+    from scipy import sparse as sps
+
+    kw = {} if device is None else {"device": device}
+    print(f"[6] standalone SparseMatrix, device={'default' if device is None else device}",
+          flush=True)
+    rng = np.random.default_rng(seed)
+    for name, X in designs.items():
+        n, k = X.shape
+        m = tt.SparseMatrix(X, **kw)
+        if device is None and m.device.type != "cuda":
+            raise AssertionError(f"a SparseMatrix built without device= landed on {m.device}")
+        Xr = X.tocsr()
+        v, r, d = rng.standard_normal(k), rng.standard_normal(n), rng.random(n)
+        rows = np.sort(rng.choice(n, n // 2, replace=False))
+        cols = np.unique([k - 1, 0, k // 2])
+        sub = Xr[rows][:, cols]
+        _check(f"{name} {n}x{k} matvec relerr", _relerr(m.matvec(v), Xr @ v), OP_TOL)
+        _check(f"{name} matvec cols relerr", _relerr(m.matvec(v, cols=cols), Xr[:, cols] @ v[cols]),
+               OP_TOL)
+        out = np.ones(n)
+        m.matvec(v, out=out)
+        _check(f"{name} matvec out= relerr", _relerr(out, 1 + Xr @ v), OP_TOL)
+        r_t = torch.as_tensor(r, device=m.device)
+        got = m.transpose_matvec(r_t)
+        if got.device != m.device:
+            raise AssertionError(f"a tensor transpose_matvec left the device: {got.device}")
+        _check(f"{name} transpose_matvec relerr", _relerr(got.cpu(), X.T @ r), OP_TOL)
+        out_t = torch.ones(k, dtype=torch.float64, device=m.device)
+        m.transpose_matvec(r_t, rows=rows, cols=cols, out=out_t)
+        want = np.ones(k)
+        want[cols] += sub.T @ r[rows]
+        _check(f"{name} transpose_matvec rows+cols out= relerr", _relerr(out_t.cpu(), want), OP_TOL)
+        if name == "sparse_wide":
+            try:
+                m.sandwich(d)
+            except NotImplementedError as err:
+                print(f"  {name} sandwich raises NotImplementedError as it must: {err}")
+            else:
+                raise AssertionError("sparse_wide's sandwich is past both budgets and must raise")
+            continue
+        H_ref = (X.T @ sps.csc_matrix(X.multiply(d[:, None]))).toarray()
+        _check(f"{name} sandwich relerr vs scipy", _relerr(m.sandwich(d), H_ref), F64_TOL)
+        sub_ref = (sub.T @ sps.csc_matrix(sub.multiply(d[rows, None]))).toarray()
+        _check(f"{name} sandwich rows+cols relerr",
+               _relerr(m.sandwich(d, rows=rows, cols=cols), sub_ref), F64_TOL)
+
+
 def _numpy_irls(X, y, family, steps, n_cg, inner):
     """The port's IRLS step (explicit Hessian, guarded CG) in numpy, for a
     dense X or a scipy sparse one."""
@@ -393,23 +553,28 @@ def phase_main_path(device, n: int, k: int, fit_steps: int = FIT_STEPS, seed: in
 
 
 def phase_mixed_path(n: int, kd: int, levels: int, device=None, fit_steps: int = FIT_STEPS,
-                     seed: int = 1) -> dict:
+                     seed: int = 1, sparse=None) -> dict:
     """The mixed main path through the public API, checked against scipy CSR
-    on the host (the design of ``bench.py:360-387``).  ``device=None`` builds
-    every matrix without ``device=``: the port's default, the card."""
+    on the host (the design of ``bench.py:360-387``), or with the scipy
+    matrix ``sparse`` as a sparse block after the dense one, the sparse main
+    path.  ``device=None`` builds every matrix without ``device=``: the
+    port's default, the card."""
     import tabmat_torch as tt
     from scipy import sparse as sps
     from tabmat_torch.parallel.design import DeviceDesign
 
     kw = {} if device is None else {"device": device}
-    print(f"[5] mixed main path {n}x({kd} + {levels} + {levels}) float64, "
+    label = ("[5] mixed main path" if sparse is None
+             else f"[7] sparse main path: + {sparse.shape[1]} sparse ({sparse.nnz} nonzeros)")
+    print(f"{label} {n}x({kd} + {levels} + {levels}) float64, "
           f"device={'default' if device is None else device}", flush=True)
     rng = np.random.default_rng(seed)
     Xd = rng.standard_normal((n, kd))
     codes = [rng.integers(0, levels, n).astype(np.int32) for _ in range(2)]
     t0 = time.perf_counter()
+    sparse_blocks = [] if sparse is None else [tt.SparseMatrix(sparse, **kw)]
     split = tt.SplitMatrix(
-        [tt.DenseMatrix(Xd, **kw)]
+        [tt.DenseMatrix(Xd, **kw)] + sparse_blocks
         + [tt.CategoricalMatrix(c, categories=np.arange(levels), **kw) for c in codes]
     )
     design = DeviceDesign.from_matrix(split)
@@ -417,12 +582,17 @@ def phase_mixed_path(n: int, kd: int, levels: int, device=None, fit_steps: int =
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     plan_seconds = time.perf_counter() - t0
-    print(f"  design on {dev}; host plans (both categoricals and their "
-          f"{levels * levels}-cell cross) {plan_seconds:.3f} s")
+    print(f"  design on {dev}; host plans (both categoricals, their "
+          f"{levels * levels}-cell cross{'' if sparse is None else ', the sparse layouts, pair and (code, column) plans'}) "
+          f"{plan_seconds:.3f} s")
     if device is None and dev.type != "cuda":
         raise AssertionError(f"a design built without device= landed on {dev}")
+    if not design.supports_sandwich:
+        raise AssertionError("the design must take the explicit sandwich")
 
-    X = sps.hstack([sps.csr_matrix(Xd)] + [m.tocsr() for m in split.matrices[1:]])
+    X = sps.hstack([sps.csr_matrix(Xd)] + [
+        m.array_csr if isinstance(m, tt.SparseMatrix) else m.tocsr() for m in split.matrices[1:]
+    ])
     X = sps.csr_matrix(X, dtype=np.float64)
     k = X.shape[1]
 
@@ -453,7 +623,9 @@ def phase_mixed_path(n: int, kd: int, levels: int, device=None, fit_steps: int =
     got = cat32.matvec(t(v32)).cpu().numpy()
     _check("float32 CategoricalMatrix.matvec max|diff|", float(np.abs(got - v32[codes[0]]).max()), 0.0)
 
-    beta_true = np.r_[rng.standard_normal(kd) * 0.05, rng.standard_normal(2 * levels) * 0.1]
+    k_sparse = 0 if sparse is None else sparse.shape[1]
+    beta_true = np.r_[rng.standard_normal(kd) * 0.05, rng.standard_normal(k_sparse) * 0.1,
+                      rng.standard_normal(2 * levels) * 0.1]
     y = rng.poisson(np.exp(X @ beta_true)).astype(np.float64)
     betas = {}
     for inner in ("float64", "float32"):
@@ -461,9 +633,9 @@ def phase_mixed_path(n: int, kd: int, levels: int, device=None, fit_steps: int =
                                   n_cg=N_CG, inner_precision=inner)
         got = beta.cpu().numpy()
         if n_iter != fit_steps or not np.all(np.isfinite(got)):
-            raise AssertionError(f"mixed fit_glm {inner}: n_iter {n_iter}, beta {got[:8]}")
+            raise AssertionError(f"{label} fit_glm {inner}: n_iter {n_iter}, beta {got[:8]}")
         ref = _numpy_irls(X, y, "poisson", fit_steps, N_CG, inner)
-        _check(f"mixed fit_glm poisson inner={inner} beta vs numpy/scipy", _relerr(got, ref),
+        _check(f"fit_glm poisson inner={inner} beta vs numpy/scipy", _relerr(got, ref),
                BETA_TOL[inner])
         betas[inner] = got
     return {"design": design, "y": t(y), "betas": betas, "plan_seconds": plan_seconds}
@@ -523,7 +695,25 @@ def _compare(label: str, card: str, kernel, plain, library=None) -> dict:
     return means
 
 
-def phase_times(device, n: int, k: int, card: str, mixed: dict) -> dict:
+def spmv_bound(plan, a, values, scale):
+    """``(bound_ms, bound_by)`` of one sparse product: ``a``, the indices,
+    the bounds, ``values`` and ``scale`` read once, the output written once;
+    a multiply-add per element and column (and the scale's multiply)."""
+    size = values.element_size()
+    m = 1 if values.ndim == 1 else values.shape[1]
+    E = plan.perm.numel()
+    n_bytes = (E * (size + 4) + plan.bounds.numel() * 4 + values.numel() * size
+               + (0 if scale is None else scale.numel() * size) + plan.num_segments * m * size)
+    return bound(n_bytes, 2 * E * m + (0 if scale is None else E))
+
+
+# the case whose times stand for spmv<T> in the kernels line: row 15's
+# function, the CSC transpose-matvec of the reference's 400k x 100 design
+ROW15_CASE = "sparse 400000x100 CSC tmv"
+
+
+def phase_times(device, n: int, k: int, card: str, mixed: dict, sparse: dict,
+                cases: list) -> dict:
     """Kernel, plain and library times with their bounds, and IRLS step times."""
     import tabmat_torch as tt
     from torch.nn import functional as F
@@ -531,9 +721,10 @@ def phase_times(device, n: int, k: int, card: str, mixed: dict) -> dict:
     from tabmat_torch.ops import gather_kernel as gk
     from tabmat_torch.ops import sandwich_kernel as sk
     from tabmat_torch.ops import segsum_kernel as ssk
+    from tabmat_torch.ops import spmv_kernel as spk
     from tabmat_torch.parallel.design import DeviceDesign
 
-    print(f"[6] times on {card}", flush=True)
+    print(f"[8] times on {card}", flush=True)
     gen = torch.Generator(device=device).manual_seed(5)
     times = {}
     for name, x_dtype, d_dtype in (("sandwich<double>", torch.float64, torch.float64),
@@ -609,12 +800,35 @@ def phase_times(device, n: int, k: int, card: str, mixed: dict) -> dict:
                  lambda: torch.bincount(xcodes, weights=r, minlength=xplan.num_segments))
         del wX, wX2, r, r2
 
+    # spmv<T>: every shape of the sparse product; the library call is the
+    # same layout as a CSR tensor times the values (cuSPARSE), where no
+    # per-row scale makes it two calls
+    for label, plan, a, values, scale in cases:
+        for dtype in (torch.float64, torch.float32):
+            name = f"spmv<{'double' if dtype == torch.float64 else 'float'}>"
+            A, V = a.to(dtype), values.to(dtype)
+            S = None if scale is None else scale.to(dtype)
+            library = None
+            if S is None:
+                csr = torch.sparse_csr_tensor(plan.bounds, plan.perm, A,
+                                              size=(plan.num_segments, plan.n_rows))
+                library = lambda: csr @ V  # noqa: E731
+            t = _compare(f"{name} {label}", card, lambda: spk.spmv(V, plan, A, S),
+                         lambda: spk.spmv_plain(V, plan.perm, plan.bounds, A, S), library)
+            t["bound"] = spmv_bound(plan, A, V, S)
+            print(f"    bound {t['bound'][0]:.6f} ms by {t['bound'][1]}")
+            times[f"{name} {label}"] = t
+            if label == ROW15_CASE:
+                times[name] = t
+            del A, V, S
+
     rng = np.random.default_rng(7)
     X_np = rng.standard_normal((n, k))
     dense = DeviceDesign.from_matrix(tt.DenseMatrix(X_np, device=device))
     y_dense = torch.as_tensor(X_np @ rng.standard_normal(k) + 0.1 * rng.standard_normal(n),
                               device=device)
-    steps = (("dense gaussian", dense, y_dense, "gaussian"), ("mixed poisson", design, y, "poisson"))
+    steps = (("dense gaussian", dense, y_dense, "gaussian"), ("mixed poisson", design, y, "poisson"),
+             ("sparse poisson", sparse["design"], sparse["y"], "poisson"))
     for label, dd, yy, family in steps:
         w = torch.ones(dd.shape[0], dtype=torch.float64, device=device)
         b0 = torch.zeros(dd.shape[1], dtype=torch.float64, device=device)
@@ -644,22 +858,34 @@ def main() -> int:
     phase_build()
     max_abs = phase_kernels(device, N, K, EDGE_N, EDGE_KS)
     max_abs.update(phase_cat_kernels(device, N))
+    t0 = time.perf_counter()
+    designs, block = sparse_designs(), sparse_block(N)
+    print(f"  scipy made the sparse designs in {time.perf_counter() - t0:.1f} s", flush=True)
+    cases = spmv_cases(device, designs, block)
+    max_abs.update(phase_spmv_kernels(device, cases))
 
-    reset_launch_counts()
-    phase_main_path(device, N, K)
-    dense_launches = launch_counts()
-    print(f"  kernel launches in the dense main path: {dense_launches}")
-    if any(dense_launches[name] == 0 for name in DENSE_KERNELS):
-        raise AssertionError("the dense main path did not launch each of its kernels")
+    main_launches = []
 
-    reset_launch_counts()
-    mixed = phase_mixed_path(N, MIX_KD, MIX_LEVELS)
-    mixed_launches = launch_counts()
-    print(f"  kernel launches in the mixed main path: {mixed_launches}")
-    if 0 in mixed_launches.values():
-        raise AssertionError("the mixed main path did not launch every kernel")
+    def run_main_path(label, phase, *args, must_launch=(), **kwargs):
+        reset_launch_counts()
+        result = phase(*args, **kwargs)
+        counts = launch_counts()
+        print(f"  kernel launches in the {label}: {counts}", flush=True)
+        missing = [name for name in must_launch if counts[name] == 0]
+        if missing:
+            raise AssertionError(f"the {label} did not launch {missing}")
+        main_launches.append(counts)
+        return result
 
-    times = phase_times(device, N, K, card, mixed)
+    run_main_path("dense main path", phase_main_path, device, N, K, must_launch=DENSE_KERNELS)
+    mixed = run_main_path("mixed main path", phase_mixed_path, N, MIX_KD, MIX_LEVELS,
+                          must_launch=[n for n in KERNELS if n not in SPARSE_KERNELS])
+    run_main_path("standalone sparse phase", phase_sparse_standalone, designs,
+                  must_launch=SPARSE_KERNELS[:1])
+    sparse = run_main_path("sparse main path", phase_mixed_path, N, MIX_KD, MIX_LEVELS,
+                           sparse=block, fit_steps=SPARSE_FIT_STEPS, must_launch=SPARSE_KERNELS)
+
+    times = phase_times(device, N, K, card, mixed, sparse, cases)
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         bound_ms, bound_by = times[name]["bound"]
@@ -668,7 +894,7 @@ def main() -> int:
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            "launches": dense_launches[name] + mixed_launches[name],
+            "launches": sum(counts[name] for counts in main_launches),
             "max_abs_err": max_abs[name],
             "ms": times[name]["kernel"],
             "plain_ms": times[name]["plain"],

@@ -5,19 +5,21 @@ and the sandwich product ``Xᵀ diag(d) X`` with active-set restriction,
 weighted standardization, and the GLM solver on top — held in torch
 tensors.  Arrays go to the CUDA card unless the caller asks for the CPU
 (``device="cpu"``, or CPU tensors).  On the card the sandwich, the
-categorical gather and the segment sum run hand-written Hopper kernels
-(``csrc/*.cu``), built with ``nvcc`` at first use.
+categorical gather, the segment sum and the sparse segment product run
+hand-written Hopper kernels (``csrc/*.cu``), built with ``nvcc`` at first
+use.
 
-The port carries ``DenseMatrix``, ``CategoricalMatrix``, ``SplitMatrix`` of
-both, ``StandardizedMatrix``, ``hstack``/``as_tabmat``, and
-``fit_glm``/``GeneralizedLinearRegressor`` on all of them.  Sparse matrices
-are still to come.  It never imports JAX.
+The port carries ``DenseMatrix``, ``SparseMatrix``, ``CategoricalMatrix``,
+``SplitMatrix`` of them, ``StandardizedMatrix``, ``hstack``/``as_tabmat``,
+and ``fit_glm``/``GeneralizedLinearRegressor`` on all of them.  It never
+imports JAX.
 """
 
 from .models import (  # noqa: F401
     CategoricalMatrix,
     DenseMatrix,
     MatrixBase,
+    SparseMatrix,
     SplitMatrix,
     StandardizedMatrix,
     as_tabmat,
@@ -32,6 +34,7 @@ __all__ = [
     "CategoricalMatrix",
     "DenseMatrix",
     "MatrixBase",
+    "SparseMatrix",
     "SplitMatrix",
     "StandardizedMatrix",
     "DiagonalResult",

@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled into a
 shared library for Hopper (``sm_90a``), loaded with :mod:`ctypes`.  The
 library lives under ``build/tabmat_torch/<hash>/`` next to the package, where
-the hash covers the source and the flags, so an edited source rebuilds and
-an unchanged one is reused.  Nothing is built at import time: the CPU paths
+the hash covers the source, the shared headers and the flags, so an edited
+source rebuilds and an unchanged one is reused.  Nothing is built at import time: the CPU paths
 never need ``nvcc``.  :func:`build_all` runs one ``nvcc`` per source, all at
 once.
 """
@@ -48,11 +48,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library for ``csrc/<name>.cu`` is built (keyed by content)."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+    """Where the library for ``csrc/<name>.cu`` is built (keyed by content:
+    the source, the shared headers ``csrc/*.cuh`` and the flags)."""
+    parts = [(CSRC / f"{name}.cu").read_bytes()]
+    parts += [h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(parts) + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_ROOT / digest / f"lib{name}.so"
 
 

@@ -1,9 +1,12 @@
-"""Host helpers for the categorical plans, in numpy.
+"""Host helpers for the categorical and sparse plans, in numpy.
 
-The port's own copy of ``counting_argsort`` and ``combine_codes``
-(``tabmat_tpu/_native/__init__.py:89-115, 222-250``).  The JAX package runs
-them in a native library with numpy fallbacks; the port keeps the numpy
-versions only.  They run once per matrix or design, outside any step.
+The port's own copy of ``counting_argsort``, ``expand_pairs_csr`` and
+``combine_codes`` (``tabmat_tpu/_native/__init__.py:89-115, 131-168,
+222-250``).  The JAX package runs them in a native library with numpy
+fallbacks; the port keeps the numpy versions only.  They run once per
+matrix or design, outside any step.  The JAX package's OpenMP CSR/CSC walks
+(``csr_matvec``, ``csc_tmv``) are not carried: in the port a numpy caller's
+sparse op runs on the card, as every other op does.
 """
 
 import numpy as np
@@ -23,6 +26,24 @@ def counting_argsort(keys: np.ndarray, num_segments: int):
         keys[perm], np.arange(num_segments + 1, dtype=np.int64)
     ).astype(np.int32)
     return perm, bounds
+
+
+def expand_pairs_csr(indptr: np.ndarray):
+    """All ordered within-row nonzero pairs of a CSR structure.
+
+    Returns ``(ia, ib, row)`` int64 arrays of length ``Σ_r nnz_r²``: the
+    positions of the two members in the data array and the owning row, in
+    row order, then ``ia``, then ``ib``.
+    """
+    indptr = np.ascontiguousarray(indptr, dtype=np.int64)
+    counts = np.diff(indptr)
+    pair_counts = counts * counts
+    row = np.repeat(np.arange(len(counts), dtype=np.int64), pair_counts)
+    pair_starts = np.concatenate([[0], np.cumsum(pair_counts)])
+    q = np.arange(int(pair_counts.sum()), dtype=np.int64) - pair_starts[row]
+    c_r = np.maximum(counts[row], 1)
+    start = indptr[row]
+    return start + q // c_r, start + q % c_r, row
 
 
 def combine_codes(a: np.ndarray, b: np.ndarray, k2: int) -> np.ndarray:

@@ -2,7 +2,8 @@
 
 The conversion duck-types the reference objects and goes through host
 numpy, so this module never imports JAX: a ``DenseMatrix`` is read through
-``unpack()`` and its names, a ``CategoricalMatrix`` through its codes,
+``unpack()`` and its names, a ``SparseMatrix`` through its CSC arrays and
+names, a ``CategoricalMatrix`` through its codes,
 categories, ``drop_first``, missing method and names, a ``SplitMatrix``
 through its blocks and their column indices, a ``StandardizedMatrix``
 through ``mat``, ``shift`` and ``mult``, a fitted
@@ -16,6 +17,7 @@ import numpy as np
 from .glm import GeneralizedLinearRegressor
 from .models.categorical import CategoricalMatrix
 from .models.dense import DenseMatrix
+from .models.sparse import SparseMatrix
 from .models.split import SplitMatrix
 from .models.standardized import StandardizedMatrix
 from .utils.arrays import to_tensor
@@ -41,6 +43,16 @@ def from_tabmat_tpu(obj, device=None):
     if kind == "DenseMatrix":
         return DenseMatrix(
             np.asarray(obj.unpack()),
+            column_names=obj.get_names("column"),
+            term_names=obj.get_names("term"),
+            device=device,
+        )
+    if kind == "SparseMatrix":
+        from scipy import sparse as sps
+
+        return SparseMatrix(
+            sps.csc_matrix((np.asarray(obj.data), np.asarray(obj.indices),
+                            np.asarray(obj.indptr)), shape=obj.shape),
             column_names=obj.get_names("column"),
             term_names=obj.get_names("term"),
             device=device,
@@ -74,7 +86,4 @@ def from_tabmat_tpu(obj, device=None):
         return est
     if hasattr(obj, "__array__"):
         return to_tensor(np.asarray(obj), device=device)
-    raise NotImplementedError(
-        f"converting a tabmat_tpu {kind} is not supported yet: sparse matrices "
-        "are ROADMAP A4"
-    )
+    raise NotImplementedError(f"converting a tabmat_tpu {kind} is not supported")

@@ -300,13 +300,14 @@ def fit_glm(
     P2=None,
     device=None,
 ):
-    """Fit a GLM by IRLS; accepts numpy arrays, tensors, a DenseMatrix, a
-    CategoricalMatrix, a SplitMatrix of both, or a StandardizedMatrix over
-    one of them.
+    """Fit a GLM by IRLS; accepts numpy arrays, tensors, a scipy sparse
+    matrix, a DenseMatrix, a SparseMatrix, a CategoricalMatrix, a SplitMatrix
+    of them, or a StandardizedMatrix over one of those.
 
     Matrices become a :class:`DeviceDesign` on their own device; a tensor
-    stays on its device; a numpy array goes to ``device``, which defaults
-    to the CUDA card (``device="cpu"`` asks for the CPU).  ``offset`` adds a fixed
+    stays on its device; a numpy array or a scipy sparse matrix goes to
+    ``device``, which defaults to the CUDA card (``device="cpu"`` asks for
+    the CPU).  ``offset`` adds a fixed
     term to the linear predictor.  ``P1``/``P2`` are per-feature penalty
     multipliers in glum's convention: the effective penalties are
     ``l1·P1[j]`` and ``l2·P2[j]``.
@@ -315,9 +316,12 @@ def fit_glm(
     Convergence: max |Δβ| < tol.
     """
     from .models.base import MatrixBase
+    from .models.split import as_tabmat
     from .models.standardized import StandardizedMatrix
     from .parallel.design import DeviceDesign
 
+    if _is_scipy_sparse(X):
+        X = as_tabmat(X, device=device)
     if isinstance(X, (MatrixBase, StandardizedMatrix)):
         X = DeviceDesign.from_matrix(X)
     if not isinstance(X, DeviceDesign):
@@ -391,6 +395,12 @@ def fit_glm(
     return beta, max_iter
 
 
+def _is_scipy_sparse(X) -> bool:
+    from scipy import sparse as sps
+
+    return sps.issparse(X)
+
+
 def _not_ported_input(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to tabmat_torch yet: the constructors and the "
@@ -401,10 +411,11 @@ def _not_ported_input(what: str) -> NotImplementedError:
 class GeneralizedLinearRegressor:
     """Minimal sklearn-style GLM estimator over tabmat_torch matrices.
 
-    Accepts numpy arrays, tensors, a DenseMatrix, a CategoricalMatrix, a
-    SplitMatrix, or a StandardizedMatrix (with ``fit_intercept=False``: as
-    in the reference, the intercept column cannot be stacked beside it).
-    DataFrames and formulas are ROADMAP A5.
+    Accepts numpy arrays, tensors, a scipy sparse matrix, a DenseMatrix, a
+    SparseMatrix, a CategoricalMatrix, a SplitMatrix, or a
+    StandardizedMatrix (with ``fit_intercept=False``: as in the reference,
+    the intercept column cannot be stacked beside it).  DataFrames and
+    formulas are ROADMAP A5.
 
     Parameters
     ----------
@@ -449,7 +460,8 @@ class GeneralizedLinearRegressor:
         from .models.base import MatrixBase
         from .models.standardized import StandardizedMatrix
 
-        return isinstance(X, (MatrixBase, StandardizedMatrix, np.ndarray, torch.Tensor))
+        return isinstance(X, (MatrixBase, StandardizedMatrix, np.ndarray, torch.Tensor)) or (
+            _is_scipy_sparse(X))
 
     def _design(self, X):
         from .models.split import hstack
@@ -504,7 +516,7 @@ class GeneralizedLinearRegressor:
         """``X @ coef_ + intercept_`` as host numpy (same X types as fit)."""
         if not self._supported(X):
             raise _not_ported_input(f"predicting on a {type(X).__name__}")
-        if isinstance(X, np.ndarray):
+        if isinstance(X, np.ndarray) or _is_scipy_sparse(X):
             eta = X @ self.coef_
         elif torch.is_tensor(X):
             coef = torch.as_tensor(self.coef_, device=X.device, dtype=X.dtype)

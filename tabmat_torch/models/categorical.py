@@ -37,6 +37,7 @@ from ..utils import (
     result_like,
     rows_to_mask,
     set_up_rows_or_cols,
+    to_numpy,
     to_tensor,
 )
 from .base import MatrixBase
@@ -170,11 +171,12 @@ class CategoricalMatrix(MatrixBase):
         self._plan = None
         # weak keys: a cross plan dies with the matrix it was built against
         self._cross_plans = weakref.WeakKeyDictionary()
+        self._sparse_plans = weakref.WeakKeyDictionary()
 
     def __getstate__(self):
         """Pickle host state only; the device state is rebuilt on use."""
         state = self.__dict__.copy()
-        for key in ("_eff_codes_dev", "_plan", "_cross_plans"):
+        for key in ("_eff_codes_dev", "_plan", "_cross_plans", "_sparse_plans"):
             state.pop(key)
         state["_device"] = str(self._device)
         return state
@@ -313,18 +315,57 @@ class CategoricalMatrix(MatrixBase):
     def _cross_sandwich(self, other, d, rows=None, L_cols=None, R_cols=None):
         """``X[:, L_cols].T @ diag(d) @ other[:, R_cols]``."""
         from .dense import DenseMatrix
+        from .sparse import SparseMatrix
 
         if isinstance(other, DenseMatrix):
             return self._cross_dense(other, d, rows, L_cols, R_cols)
+        if isinstance(other, SparseMatrix):
+            return self._cross_sparse(other, d, rows, L_cols, R_cols)
         if isinstance(other, CategoricalMatrix):
             return self._cross_categorical(other, d, rows, L_cols, R_cols)
         raise TypeError(f"no cross sandwich of a CategoricalMatrix with {type(other).__name__}")
 
+    def _sparse_plan(self, other):
+        """``(a, plan, uniq)`` of the (code, column) plan with the SparseMatrix
+        ``other``, built once per pair of matrices: one segment per cell of
+        the (K, k) result, or per observed cell past ``_CROSS_DENSE_PLAN_MAX``
+        cells (``uniq`` the flat cell of each)."""
+        from ..ops import sparse_ops
+
+        cached = self._sparse_plans.get(other)
+        if cached is None:
+            K = self.shape[1]
+            cached = sparse_ops.code_column_plan(
+                self._eff_codes_np, K, self.shape[0], other.array_csc, self._device,
+                compress=K * other.shape[1] > self._CROSS_DENSE_PLAN_MAX,
+            )
+            self._sparse_plans[other] = cached
+        return cached
+
     def _cross_sparse(self, other, d, rows, L_cols, R_cols):
-        raise NotImplementedError(
-            "the categorical x sparse cross sandwich needs SparseMatrix, which is "
-            "not ported to tabmat_torch yet (ROADMAP A4)"
-        )
+        """cat.T @ diag(d) @ sparse: one launch of the sparse segment product
+        over the (code, column) plan.  The JAX package multiplies on the host
+        with scipy (``models/categorical.py:510-526``)."""
+        from ..ops import sparse_ops
+
+        K, k = self.shape[1], other.shape[1]
+        if K * k > 2**31:
+            raise MemoryError(
+                f"cat × sparse cross-sandwich output would have {K}×{k} entries; "
+                "this is infeasible to densify."
+            )
+        a, plan, uniq = self._sparse_plan(other)
+        dm = self._row_masked(self._operand(d), rows)
+        res = sparse_ops.code_column_cross(a.to(dm.dtype), plan, uniq, K, k, dm.contiguous())
+        if L_cols is not None and len(L_cols) < K:
+            res = res.index_select(
+                0, torch.as_tensor(np.asarray(L_cols, dtype=np.int64), device=res.device)
+            )
+        if R_cols is not None and len(R_cols) < k:
+            res = res.index_select(
+                1, torch.as_tensor(np.asarray(R_cols, dtype=np.int64), device=res.device)
+            )
+        return result_like(d, res)
 
     def _cross_dense(self, other, d, rows, L_cols, R_cols):
         """cat.T @ diag(d) @ dense: segment sum of the d-scaled dense rows."""
@@ -401,19 +442,22 @@ class CategoricalMatrix(MatrixBase):
     # -- conversions ------------------------------------------------------------
 
     def getcol(self, i: int):
-        """Column ``i`` (wrap-around index) as a (n, 1) DenseMatrix.
+        """Column ``i`` (wrap-around index) as a single-column SparseMatrix."""
+        from scipy import sparse as sps
 
-        The reference returns a SparseMatrix, which is ROADMAP A4 in the
-        port; the values are the same.
-        """
-        from .dense import DenseMatrix
+        from .sparse import SparseMatrix
 
         i = int(i) % self.shape[1]
-        col = (self.eff_codes == i).to(torch.float64 if self.dtype == np.float64 else torch.float32)
-        return DenseMatrix(
-            col[:, None],
+        hits = np.flatnonzero(self._eff_codes_np == i)
+        col_i = sps.csc_matrix(
+            (np.ones(hits.size, dtype=int), (hits, np.zeros(hits.size, dtype=np.int32))),
+            shape=(self.shape[0], 1),
+        )
+        return SparseMatrix(
+            col_i,
             column_names=[self.column_names[i]],
             term_names=[self.term_names[i]],
+            device=self._device,
         )
 
     def tocsr(self):
@@ -430,9 +474,14 @@ class CategoricalMatrix(MatrixBase):
         )
 
     def to_sparse_matrix(self):
-        raise NotImplementedError(
-            "SparseMatrix is not ported to tabmat_torch yet (ROADMAP A4); "
-            "tocsr() gives the scipy matrix"
+        """The one-hot matrix as a SparseMatrix on the same device."""
+        from .sparse import SparseMatrix
+
+        return SparseMatrix(
+            self.tocsr(),
+            column_names=self.column_names,
+            term_names=self.term_names,
+            device=self._device,
         )
 
     def toarray(self) -> np.ndarray:
@@ -482,13 +531,12 @@ class CategoricalMatrix(MatrixBase):
         return np.sqrt(np.maximum(variances, 0))
 
     def multiply(self, other):
-        """Row-wise scaling → scipy CSR matrix (host).
-
-        The reference returns a SparseMatrix, which is ROADMAP A4 in the port.
-        """
+        """Row-wise scaling → SparseMatrix on the same device (names kept)."""
         from scipy import sparse as sps
 
-        other = np.squeeze(np.asarray(other))
+        from .sparse import SparseMatrix
+
+        other = np.squeeze(to_numpy(other))
         if self.shape[0] != other.shape[0]:
             raise ValueError(
                 f"Shapes do not match. Expected length of {self.shape[0]}. "
@@ -498,8 +546,11 @@ class CategoricalMatrix(MatrixBase):
         valid = eff >= 0
         indptr = np.zeros(self.shape[0] + 1, dtype=int)
         np.cumsum(valid, out=indptr[1:])
-        return sps.csr_matrix(
-            (other[valid], eff[valid].astype(np.int32), indptr), shape=self.shape
+        return SparseMatrix(
+            sps.csr_matrix((other[valid], eff[valid].astype(np.int32), indptr), shape=self.shape),
+            column_names=self.column_names,
+            term_names=self.term_names,
+            device=self._device,
         )
 
     def __getitem__(self, item):
@@ -511,10 +562,8 @@ class CategoricalMatrix(MatrixBase):
         else:
             full = len(range(*col.indices(self.shape[1]))) == self.shape[1]
         if not full:
-            raise NotImplementedError(
-                "column subsets of a CategoricalMatrix are a SparseMatrix, which is "
-                "not ported to tabmat_torch yet (ROADMAP A4)"
-            )
+            # column subsetting loses the one-nonzero-per-row structure
+            return self.to_sparse_matrix()[row, col]
         if isinstance(row, np.ndarray):
             row = row.ravel()
         return CategoricalMatrix(

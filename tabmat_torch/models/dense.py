@@ -223,10 +223,12 @@ class DenseMatrix(MatrixBase):
         return result_like(d, S)
 
     def _cross_sandwich(self, other, d, rows=None, L_cols=None, R_cols=None):
-        """``X[:, L_cols].T @ diag(d) @ other[:, R_cols]`` for a categorical ``other``."""
+        """``X[:, L_cols].T @ diag(d) @ other[:, R_cols]`` for a categorical or
+        sparse ``other``."""
         from .categorical import CategoricalMatrix
+        from .sparse import SparseMatrix
 
-        if isinstance(other, CategoricalMatrix):
+        if isinstance(other, (CategoricalMatrix, SparseMatrix)):
             return other._cross_sandwich(self, d, rows, R_cols, L_cols).T
         raise TypeError(f"no cross sandwich of a DenseMatrix with {type(other).__name__}")
 

@@ -1,15 +1,17 @@
-"""SplitMatrix: a column-partitioned container of dense and categorical blocks.
+"""SplitMatrix: a column-partitioned container of dense, sparse and
+categorical blocks.
 
 Port of ``tabmat_tpu/models/split.py`` (with ``as_tabmat`` and ``hstack``).
 Each block covers a sorted set of global column indices; ops fan out to the
-blocks and the results are assembled.
+blocks and the results are assembled.  All dense blocks fuse into one, and
+so do all sparse blocks.
 
 Tensor callers go through the cached :class:`DeviceDesign`, as the
 reference's jax callers do (``split.py:39-66, 422-434, 474-487, 522-539``):
-one gather, one segment sum and the sandwich grid over all blocks, with the
-result left on the device.  numpy callers take the blockwise path: each
-block's op, the pairwise cross sandwiches, and an indexed assembly.  Sparse
-blocks are ROADMAP A4.
+one gather, one segment sum, one sparse segment product per sparse layout
+and the sandwich grid over all blocks, with the result left on the device.
+numpy callers take the blockwise path: each block's op, the pairwise cross
+sandwiches, and an indexed assembly.
 """
 
 import warnings
@@ -18,6 +20,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from scipy import sparse as sps
 
 from ..ops.diag import DiagonalResult
 from ..utils import (
@@ -34,25 +37,20 @@ from ..utils import (
     to_tensor,
 )
 from .base import MatrixBase
-from .categorical import CategoricalMatrix
 from .dense import DenseMatrix
+from .sparse import SparseMatrix
 from .standardized import StandardizedMatrix
 
 
-def _sparse_not_ported() -> NotImplementedError:
-    return NotImplementedError("SparseMatrix is not ported to tabmat_torch yet (ROADMAP A4)")
-
-
 def as_tabmat(a, device=None):
-    """Coerce to a MatrixBase: an ndarray or tensor becomes a DenseMatrix."""
+    """Coerce to a MatrixBase: a scipy sparse matrix becomes a SparseMatrix,
+    an ndarray or tensor a DenseMatrix."""
     if isinstance(a, (MatrixBase, StandardizedMatrix)):
         return a
     if isinstance(a, np.ndarray) or torch.is_tensor(a):
         return DenseMatrix(a, device=device)
-    from scipy import sparse as sps
-
     if sps.issparse(a):
-        raise _sparse_not_ported()
+        return SparseMatrix(a.tocsc(copy=False), device=device)
     raise ValueError(f"Cannot convert type {type(a)} to Matrix.")
 
 
@@ -66,7 +64,8 @@ def _device_of(tup, device):
 
 
 def hstack(tup: Sequence, device=None) -> MatrixBase:
-    """Stack matrices horizontally; all-dense inputs give one DenseMatrix.
+    """Stack matrices horizontally; all-dense inputs give one DenseMatrix,
+    all-sparse inputs one SparseMatrix.
 
     The result lives on ``device``, else on the device of the first input
     that is a tensor or a matrix, else on the CUDA card.
@@ -75,18 +74,25 @@ def hstack(tup: Sequence, device=None) -> MatrixBase:
         raise ValueError("Need at least one array to concatenate.")
     dev = _device_of(tup, device)
     matrices = [as_tabmat(a, device=dev) for a in tup]
+    dev = matrices[0].device
+    if all(isinstance(m, SparseMatrix) for m in matrices):
+        return SparseMatrix(sps.hstack([m.unpack() for m in matrices]), device=dev)
     if all(isinstance(m, DenseMatrix) for m in matrices):
-        dev = matrices[0].device
         return DenseMatrix(torch.cat([m.unpack().to(dev) for m in matrices], dim=1))
     return SplitMatrix(matrices)
 
 
-def _merge_dense(blocks, col_lists):
-    """Fuse several dense blocks into one, re-sorted into global order."""
+def _merge_group(blocks, col_lists):
+    """Fuse several blocks of one kind (dense or sparse) into one, re-sorted
+    into global order."""
     stacked_cols = np.concatenate([np.asarray(c) for c in col_lists])
     order = np.argsort(stacked_cols)
-    wide = torch.cat([b.unpack() for b in blocks], dim=1)
-    fused = DenseMatrix(wide[:, torch.as_tensor(order, device=wide.device)])
+    if isinstance(blocks[0], DenseMatrix):
+        wide = torch.cat([b.unpack() for b in blocks], dim=1)
+        fused = DenseMatrix(wide[:, torch.as_tensor(order, device=wide.device)])
+    else:
+        wide = sps.hstack([b.unpack() for b in blocks], format="csc")
+        fused = SparseMatrix(wide[:, order], device=blocks[0].device)
     names = np.concatenate([np.asarray(b._colnames, dtype=object) for b in blocks])
     terms = np.concatenate([np.asarray(b._terms, dtype=object) for b in blocks])
     fused._colnames = names[order].tolist()
@@ -95,20 +101,22 @@ def _merge_dense(blocks, col_lists):
 
 
 def _coalesce_blocks(blocks, col_lists):
-    """Drop zero-width blocks and fuse all dense blocks into one.
+    """Drop zero-width blocks; fuse all dense blocks into one, and all sparse
+    blocks into one.
 
-    Categorical blocks are never fused: each stands for one model term.  The
-    fused block takes the list position of the first dense block.
+    Categorical blocks are never fused: each stands for one model term.  A
+    fused block takes the list position of its group's first member.
     """
     kept = [(b, c) for b, c in zip(blocks, col_lists, strict=True) if b.shape[1] > 0]
-    dense = [p for p, (b, _) in enumerate(kept) if isinstance(b, DenseMatrix)]
-    if len(dense) > 1:
-        fused = _merge_dense([kept[p][0] for p in dense], [kept[p][1] for p in dense])
-        kept = [
-            fused if p == dense[0] else bc
-            for p, bc in enumerate(kept)
-            if p == dense[0] or p not in dense
-        ]
+    for kind in (DenseMatrix, SparseMatrix):
+        group = [p for p, (b, _) in enumerate(kept) if isinstance(b, kind)]
+        if len(group) > 1:
+            fused = _merge_group([kept[p][0] for p in group], [kept[p][1] for p in group])
+            kept = [
+                fused if p == group[0] else bc
+                for p, bc in enumerate(kept)
+                if p == group[0] or p not in group
+            ]
     return [b for b, _ in kept], [c for _, c in kept]
 
 
@@ -125,7 +133,7 @@ def _place_segments(segments, positions, total_len):
 
 
 class SplitMatrix(MatrixBase):
-    """Matrix with dense and categorical column blocks."""
+    """Matrix with dense, sparse and categorical column blocks."""
 
     __array_priority__ = 13
 
@@ -166,15 +174,10 @@ class SplitMatrix(MatrixBase):
                     blocks.append(leaf)
                     default_cols.append(cursor + np.asarray(leaf_cols, np.int64))
                 cursor += entry.shape[1]
-            elif isinstance(entry, (DenseMatrix, CategoricalMatrix)):
+            else:
                 blocks.append(entry)
                 default_cols.append(np.arange(cursor, cursor + entry.shape[1], dtype=np.int64))
                 cursor += entry.shape[1]
-            else:
-                raise NotImplementedError(
-                    f"a {type(entry).__name__} block is not ported to tabmat_torch "
-                    "yet (sparse blocks are ROADMAP A4)"
-                )
         return blocks, default_cols
 
     @staticmethod
@@ -467,13 +470,8 @@ class SplitMatrix(MatrixBase):
         return SplitMatrix([mat[row, :] for mat in self.matrices], self.indices)
 
     def multiply(self, other):
-        """Row-wise scaling of every block (dense blocks only until A4: a
-        scaled categorical is a SparseMatrix)."""
-        if any(isinstance(m, CategoricalMatrix) for m in self.matrices):
-            raise NotImplementedError(
-                "a row-scaled categorical block is a SparseMatrix, which is not "
-                "ported to tabmat_torch yet (ROADMAP A4)"
-            )
+        """Row-wise scaling of every block (a scaled categorical is a
+        SparseMatrix)."""
         return SplitMatrix([mat.multiply(other) for mat in self.matrices], self.indices)
 
     def __repr__(self):

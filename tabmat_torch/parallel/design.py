@@ -1,16 +1,21 @@
 """DeviceDesign: a design matrix as the operator the GLM layer drives.
 
-Port of ``tabmat_tpu/parallel/design.py`` for dense and categorical blocks.
-``DeviceDesign.from_matrix`` turns a DenseMatrix, a CategoricalMatrix, a
-SplitMatrix of both, or a StandardizedMatrix over one of them into blocks of
-device tensors, with ``@``, ``.T @`` and an explicit ``sandwich`` so that
+Port of ``tabmat_tpu/parallel/design.py``.  ``DeviceDesign.from_matrix``
+turns a DenseMatrix, a SparseMatrix, a CategoricalMatrix, a SplitMatrix of
+them, or a StandardizedMatrix over one of those into blocks of device
+tensors, with ``@``, ``.T @`` and an explicit ``sandwich`` so that
 ``glm.irls_step`` drives it.  The reference traces the whole step into one
 XLA program; the port runs eagerly, a few kernels per op.
 
-Blocks (at most one of each; a SplitMatrix fuses its dense blocks into one):
+Blocks (at most one of each; a SplitMatrix fuses its dense blocks into one,
+and its sparse blocks into one):
 
 - dense: X (n, kd).  matvec and tmv are ``torch.matmul``; the sandwich
   diagonal cell is the CUDA sandwich, ``column_absmax`` the range prepass.
+- sparse: the CSR and CSC layouts of a SparseMatrix, its pair plan, and one
+  (code, column) plan keyed on the cat block's stacked codes.  matvec, tmv,
+  the sparse diagonal cell, the sparse×dense cell and all sparse×cat cells
+  are one launch each of the sparse segment product ``spmv<T>``.
 - cat: every categorical of the design stacked into one block, as the
   reference's ``catstack`` (``design.py:36-48``) does, so that an op costs
   the same launches for any number of categoricals: one gather over the
@@ -19,19 +24,25 @@ Blocks (at most one of each; a SplitMatrix fuses its dense blocks into one):
   categoricals over their combined codes (the cat×cat cells).  One
   categorical is the stack of one.
 
-Sparse blocks are ROADMAP A4.
+Every segment is summed directly; the reference differenced cumsums over
+all nonzeros or rows (``design.py:493-505, 538-551, 661-664, 775-809``).
 """
 
 import numpy as np
 import torch
 
 from ..models.categorical import CategoricalMatrix
-from ..ops import dense_ops, gather_kernel, sandwich_kernel, segments
+from ..models.sparse import SparseMatrix
+from ..ops import dense_ops, gather_kernel, sandwich_kernel, segments, sparse_ops
 
 # The explicit sandwich needs a full K1·K2-segment plan for every pair of
 # categoricals: the product of their widths must be at most this (the
 # reference's bound, ``design.py:90-94``, and the matrices' own).
 CROSS_MAX_SEGMENTS = CategoricalMatrix._CROSS_DENSE_PLAN_MAX
+# ... and a (code, column) plan for the sparse block against every
+# categorical: each width times the sparse width at most this
+# (``design.py:136-138``).
+SPARSE_CAT_MAX_SEGMENTS = 1 << 24
 
 
 class _DenseBlock:
@@ -43,6 +54,7 @@ class _DenseBlock:
         self.X = X
         self.width = X.shape[1]
         self.positions = positions
+        self.device = X.device
 
     def astype_float(self, dtype) -> "_DenseBlock":
         return _DenseBlock(self.X.to(dtype), self.positions)
@@ -72,7 +84,7 @@ class _CatBlock:
         self.width = sum(self.widths)
         self.positions = positions
         self.n = cats[0].shape[0]
-        device = cats[0].device
+        self.device = device = cats[0].device
         codes, off = [], 0
         for m in cats:
             eff = m._eff_codes_np
@@ -118,8 +130,71 @@ class _CatBlock:
         return cross_dense, H
 
 
+class _SparseBlock:
+    """A SparseMatrix's device layouts at global column ``positions``.
+
+    - ``csr`` and ``csc``: ``(data, plan)`` of each layout, shared with the
+      matrix;
+    - ``pair``: ``(prod, plan)`` of the pair sandwich, or None past its
+      budgets;
+    - ``cat``: ``(a, plan)`` of the (code, column) plan against the design's
+      stacked categoricals, or None (no categoricals, or past the budget);
+    - ``absmax``: the largest |x| of the block, taken once: with max |w| it
+      bounds every |x_ij · w_i| for the f32 Hessian scale.
+    """
+
+    kind = "sparse"
+
+    def __init__(self, mat: SparseMatrix, positions: np.ndarray):
+        self.width = mat.shape[1]
+        self.positions = positions
+        self.device = mat.device
+        self.csr = mat._csr_parts()
+        self.csc = mat._csc_parts()
+        self.pair = mat._pair_parts()
+        self.cat = None
+        self._csc_host = mat.array_csc
+        self.absmax = float(np.abs(mat.data).max()) if mat.data.size else 0.0
+
+    def attach_cat_plan(self, cat: "_CatBlock") -> None:
+        """Build the (code, column) plan over the stacked codes of ``cat``:
+        one launch then gives every sparse×cat cell."""
+        if all(w * self.width <= SPARSE_CAT_MAX_SEGMENTS for w in cat.widths):
+            a, plan, _ = sparse_ops.code_column_plan(
+                cat.codes.cpu().numpy(), cat.width, cat.n, self._csc_host, self.device)
+            self.cat = (a, plan)
+
+    def astype_float(self, dtype) -> "_SparseBlock":
+        new = object.__new__(_SparseBlock)
+        new.__dict__.update(self.__dict__)
+
+        def cast(pair):
+            return None if pair is None else (pair[0].to(dtype), pair[1])
+
+        new.csr, new.csc, new.pair, new.cat = (cast(p) for p in (self.csr, self.csc, self.pair,
+                                                                  self.cat))
+        return new
+
+    def matvec(self, v):
+        return sparse_ops.csr_matvec(*self.csr, v.contiguous())
+
+    def tmv(self, r):
+        return sparse_ops.csc_rmatvec(*self.csc, r.contiguous())
+
+    def diag(self, w):
+        return sparse_ops.pair_sandwich(*self.pair, self.width, w)
+
+    def cross_dense(self, X, w):
+        """(ks, kd): ``X_sᵀ diag(w) X_d``, w as the per-row scale."""
+        return sparse_ops.csc_cross_dense(*self.csc, w, X)
+
+    def cross_cat(self, w, cat_width: int):
+        """(cat width, ks): every sparse×cat cell in one launch."""
+        return sparse_ops.code_column_cross(*self.cat, None, cat_width, self.width, w)
+
+
 class DeviceDesign:
-    """A dense and/or categorical design on one device."""
+    """A dense, sparse and/or categorical design on one device."""
 
     # widest design for which the explicit (k, k) Hessian is built
     SANDWICH_MAX_COLS = 4096
@@ -144,8 +219,8 @@ class DeviceDesign:
 
     @classmethod
     def from_matrix(cls, mat) -> "DeviceDesign":
-        """Convert a DenseMatrix, a CategoricalMatrix, a SplitMatrix of them,
-        or a StandardizedMatrix over one of those."""
+        """Convert a DenseMatrix, a SparseMatrix, a CategoricalMatrix, a
+        SplitMatrix of them, or a StandardizedMatrix over one of those."""
         from ..models.dense import DenseMatrix
         from ..models.split import SplitMatrix
         from ..models.standardized import StandardizedMatrix
@@ -159,30 +234,38 @@ class DeviceDesign:
 
             mult = None if mat.mult is None else param(mat.mult)
             return cls(inner.blocks, *inner.shape, inner.dtype, param(mat.shift), mult)
-        if not isinstance(mat, (DenseMatrix, CategoricalMatrix, SplitMatrix)):
+        if not isinstance(mat, (DenseMatrix, SparseMatrix, CategoricalMatrix, SplitMatrix)):
             raise TypeError(f"Cannot convert {type(mat).__name__} to a DeviceDesign")
         n, k = mat.shape
+        dtype = as_torch_dtype(mat.dtype)
         if isinstance(mat, DenseMatrix):
-            X = mat.unpack()
-            return cls([_DenseBlock(X, np.arange(k))], n, k, X.dtype)
+            return cls([_DenseBlock(mat.unpack(), np.arange(k))], n, k, dtype)
+        if isinstance(mat, SparseMatrix):
+            return cls([_SparseBlock(mat, np.arange(k))], n, k, dtype)
         if isinstance(mat, CategoricalMatrix):
-            return cls([_CatBlock([mat], np.arange(k))], n, k, as_torch_dtype(mat.dtype))
-        # a SplitMatrix: its blocks are dense or categorical (sparse is A4)
+            return cls([_CatBlock([mat], np.arange(k))], n, k, dtype)
+        # a SplitMatrix: at most one dense and one sparse block (fused), and
+        # any number of categoricals, stacked into one block
         blocks, cats, cat_positions = [], [], []
         for m, idx in zip(mat.matrices, mat.indices):
             if isinstance(m, DenseMatrix):
                 blocks.append(_DenseBlock(m.unpack(), idx))
+            elif isinstance(m, SparseMatrix):
+                blocks.append(_SparseBlock(m, idx))
             else:
                 cats.append(m)
                 cat_positions.append(idx)
         if cats:
-            blocks.append(_CatBlock(cats, np.concatenate(cat_positions)))
-        return cls(blocks, n, k, as_torch_dtype(mat.dtype))
+            cat = _CatBlock(cats, np.concatenate(cat_positions))
+            blocks.append(cat)
+            for b in blocks:
+                if b.kind == "sparse":
+                    b.attach_cat_plan(cat)
+        return cls(blocks, n, k, dtype)
 
     @property
     def device(self) -> torch.device:
-        b = self.blocks[0]
-        return b.X.device if b.kind == "dense" else b.codes.device
+        return self.blocks[0].device
 
     @property
     def X(self):
@@ -209,7 +292,7 @@ class DeviceDesign:
             def cast(x):
                 return None if x is None else x.to(dtype)
 
-            blocks = [b.astype_float(dtype) if b.kind == "dense" else b for b in self.blocks]
+            blocks = [b if b.kind == "cat" else b.astype_float(dtype) for b in self.blocks]
             d = object.__new__(DeviceDesign)
             d.__dict__.update(self.__dict__)
             d.blocks, d.dtype, d.shift, d.mult = blocks, dtype, cast(self.shift), cast(self.mult)
@@ -247,33 +330,48 @@ class DeviceDesign:
         """True when the explicit sandwich is available.
 
         Standardized designs take the Hessian-vector path, as in the
-        reference, and so do designs whose cat×cat cross plans were too
-        large to build.
+        reference, and so do designs whose cat×cat cross plans, sparse pair
+        plan or sparse×cat plan were too large to build
+        (``design.py:610-641``).
         """
-        cat = self._block("cat")
+        cat, sparse = self._block("cat"), self._block("sparse")
         return (
             self.shape[1] <= self.SANDWICH_MAX_COLS
             and self.shift is None
             and self.mult is None
             and (cat is None or cat.has_cross_plans)
+            and (sparse is None or (sparse.pair is not None
+                                    and (cat is None or sparse.cat is not None)))
         )
 
     def sandwich(self, w: torch.Tensor) -> torch.Tensor:
         """Explicit ``Xᵀ diag(w) X`` → (k, k): the dense cell through the
-        sandwich kernel, the categorical cells through the segment sum."""
-        dense, cat = self._block("dense"), self._block("cat")
-        if cat is None:
-            H = dense_ops.sandwich(dense.X, w)
-        else:
+        sandwich kernel, the categorical cells through the segment sum, the
+        sparse cells through the sparse segment product.  Each off-diagonal
+        cell is computed once and mirrored, so the result is exactly
+        symmetric where each diagonal cell is."""
+        dense, sparse, cat = (self._block(kind) for kind in ("dense", "sparse", "cat"))
+        cells = {}
+        if dense is not None:
+            cells["dense", "dense"] = dense_ops.sandwich(dense.X, w)
+        if sparse is not None:
+            cells["sparse", "sparse"] = sparse.diag(w)
+            if dense is not None:
+                cells["sparse", "dense"] = sparse.cross_dense(dense.X, w)
+        if cat is not None:
             wX = None if dense is None else (dense.X * w[:, None]).contiguous()
-            cross_dense, H_cat = cat.sandwich(w, wX)
-            if dense is None:
-                H = H_cat
-            else:
-                H = torch.cat([
-                    torch.cat([dense_ops.sandwich(dense.X, w), cross_dense.T], dim=1),
-                    torch.cat([cross_dense, H_cat], dim=1),
-                ])
+            cells["cat", "dense"], cells["cat", "cat"] = cat.sandwich(w, wX)
+            if sparse is not None:
+                cells["cat", "sparse"] = sparse.cross_cat(w, cat.width)
+
+        def cell(a, b):
+            return cells[a, b] if (a, b) in cells else cells[b, a].T
+
+        kinds = [b.kind for b in self.blocks]
+        if len(kinds) == 1:
+            H = cells[kinds[0], kinds[0]]
+        else:
+            H = torch.cat([torch.cat([cell(a, b) for b in kinds], dim=1) for a in kinds])
         if self._identity_order:
             return H
         return H[self._index_map][:, self._index_map]
@@ -282,16 +380,22 @@ class DeviceDesign:
         """A float64 bound of ``max_ij |x_ij| · |w_i|``, on the device.
 
         Dense columns take the range prepass (the CUDA ``column_absmax`` on
-        the float32 copy); a one-hot column's maximum is at most ``max |w|``.
-        NaN propagates.
+        the float32 copy); a one-hot column's maximum is at most ``max |w|``,
+        a sparse column's at most its largest |x| times ``max |w|``.  NaN
+        propagates.
         """
         parts = []
-        dense = self._block("dense")
+        dense, sparse = self._block("dense"), self._block("sparse")
         if dense is not None:
             parts.append(sandwich_kernel.column_absmax(dense.X, w).amax())
+        if sparse is not None:
+            parts.append(sparse.absmax * w.abs().amax())
         if self._block("cat") is not None:
             parts.append(w.abs().amax())
-        return parts[0] if len(parts) == 1 else torch.maximum(*parts)
+        bound = parts[0]
+        for part in parts[1:]:
+            bound = torch.maximum(bound, part)
+        return bound
 
     # operator sugar so glm.irls_step treats designs and tensors alike
     def __matmul__(self, v):

@@ -167,9 +167,15 @@ def test_cross_categorical(compressed, monkeypatch):
 
 
 def test_cross_sparse_names_the_roadmap():
-    _, port = _pair("plain")
-    with pytest.raises(NotImplementedError, match="A4"):
-        port._cross_sparse(None, np.ones(N), None, None, None)
+    """The categorical × sparse cross sandwich, which ROADMAP A4 ported: the
+    same values as the reference's host scipy product."""
+    from scipy import sparse as sps
+
+    ref, port = _pair("zero_drop_first")
+    X = sps.random(N, 5, density=0.2, format="csc", random_state=np.random.default_rng(3))
+    d = np.random.default_rng(4).random(N)
+    want = ref._cross_sparse(tm.SparseMatrix(X), d, None, None, None)
+    _close(port._cross_sparse(tt.SparseMatrix(X, device="cpu"), d, None, None, None), want)
 
 
 @pytest.mark.parametrize("name", CONFIGS)
@@ -191,8 +197,10 @@ def test_getitem_rows(row):
     got, want = port[row, :], ref[row, :]
     assert isinstance(got, tt.CategoricalMatrix)
     np.testing.assert_array_equal(got.toarray(), want.toarray())
-    with pytest.raises(NotImplementedError, match="A4"):
-        port[:, [0, 1]]
+    # a column subset is a SparseMatrix, as in the reference
+    got, want = port[row, [0, 1]], ref[row, [0, 1]]
+    assert isinstance(got, tt.SparseMatrix)
+    np.testing.assert_array_equal(got.toarray(), want.toarray())
 
 
 def test_names():

@@ -351,8 +351,10 @@ def test_hstack_and_as_tabmat():
 def test_not_ported_inputs_raise():
     from scipy import sparse as sps
 
-    with pytest.raises(NotImplementedError, match="A4"):
-        tt.as_tabmat(sps.eye(3, format="csc"))
+    # scipy input is a SparseMatrix since ROADMAP A4
+    got = tt.as_tabmat(sps.eye(3, format="csc"), device="cpu")
+    assert isinstance(got, tt.SparseMatrix)
+    np.testing.assert_array_equal(got.toarray(), np.eye(3))
     # as in the reference, a StandardizedMatrix is no block of a SplitMatrix
     std = tt.StandardizedMatrix(tt.DenseMatrix(base_array(), device="cpu"), np.zeros(2))
     with pytest.raises(ValueError, match="MatrixBase"):

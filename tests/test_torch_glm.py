@@ -301,5 +301,7 @@ def test_not_ported_inputs_raise():
         tt.GeneralizedLinearRegressor(formula="y ~ x").fit(np.ones((2, 1)), [1.0, 2.0])
     with pytest.raises(TypeError, match="DeviceDesign"):
         DeviceDesign.from_matrix(object())
-    with pytest.raises(NotImplementedError, match="A4"):
-        from_tabmat_tpu(tm.SparseMatrix(np.eye(3)), device="cpu")
+    # sparse matrices convert since ROADMAP A4
+    carried = from_tabmat_tpu(tm.SparseMatrix(np.eye(3)), device="cpu")
+    assert isinstance(carried, tt.SparseMatrix)
+    np.testing.assert_array_equal(carried.toarray(), np.eye(3))

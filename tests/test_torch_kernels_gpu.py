@@ -1,5 +1,6 @@
-"""The CUDA kernels (sandwich, range prepass, gather, segment sum) against
-their plain versions, and the default device, on the card.
+"""The CUDA kernels (sandwich, range prepass, gather, segment sum, sparse
+segment product) against their plain versions, and the default device, on
+the card.
 
 Marked ``gpu``: here, without a card, each test skips with its reason.  On
 the card:
@@ -178,3 +179,97 @@ def test_segsum_matches_plain_and_repeats(cuda, W, m, dtype):
     scale = ssk.segsum_plain(v.abs().double(), plan.perm, plan.bounds).clamp_min(1e-300)
     rel = float(((first.double() - want.double()).abs() / scale).max())
     assert rel <= TOL[dtype]
+
+
+def _spmv_layout(rng, lengths, n_src, cuda):
+    from tabmat_torch.ops.segments import SegmentPlan
+
+    bounds = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+    idx = rng.integers(0, n_src, int(bounds[-1])).astype(np.int32)
+    return SegmentPlan(torch.as_tensor(idx, device=cuda), torch.as_tensor(bounds, device=cuda),
+                       n_src)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("with_scale", [False, True], ids=["a", "a*scale"])
+@pytest.mark.parametrize("m", [1, 5, 9])
+@pytest.mark.parametrize("layout", ["empty_and_long", "one_segment", "mostly_empty"])
+def test_spmv_matches_plain_and_repeats(cuda, layout, m, with_scale, dtype):
+    from tabmat_torch.ops import spmv_kernel as spk
+
+    rng = np.random.default_rng(m + 10 * with_scale)
+    n_src = 50_003
+    lengths = {
+        "empty_and_long": np.r_[0, 0, rng.integers(0, 40, 20_000), 0, 70_000, 0],
+        "one_segment": [123_457],
+        "mostly_empty": np.where(rng.random(300_000) < 0.03, rng.integers(1, 5, 300_000), 0),
+    }[layout]
+    plan = _spmv_layout(rng, lengths, n_src, cuda)
+    E = plan.perm.shape[0]
+    shape = (n_src,) if m == 1 else (n_src, m)
+    v = torch.as_tensor(rng.standard_normal(shape), dtype=dtype, device=cuda)
+    a = torch.as_tensor(rng.standard_normal(E), dtype=dtype, device=cuda)
+    scale = (torch.as_tensor(rng.random(n_src) + 0.5, dtype=dtype, device=cuda)
+             if with_scale else None)
+    name = f"spmv<{'double' if dtype == torch.float64 else 'float'}>"
+    before = spk.launches[name]
+    first, second = spk.spmv(v, plan, a, scale), spk.spmv(v, plan, a, scale)
+    assert spk.launches[name] == before + 2
+    assert torch.equal(first, second)
+    want = spk.spmv_plain(v, plan.perm, plan.bounds, a, scale)
+    mag = spk.spmv_plain(v.abs().double(), plan.perm, plan.bounds, a.abs().double(),
+                         None if scale is None else scale.abs().double()).clamp_min(1e-300)
+    assert float(((first.double() - want.double()).abs() / mag).max()) <= TOL[dtype]
+    empty = torch.as_tensor(np.asarray(lengths) == 0, device=cuda)
+    assert not first[empty].any()
+
+
+def test_spmv_rejects_noncontiguous_and_launches_nothing_when_empty(cuda):
+    from tabmat_torch.ops import spmv_kernel as spk
+
+    rng = np.random.default_rng(3)
+    plan = _spmv_layout(rng, [3, 0, 5], 10, cuda)
+    a = torch.ones(8, dtype=torch.float64, device=cuda)
+    V = torch.zeros(4, 10, dtype=torch.float64, device=cuda).T
+    with pytest.raises(ValueError, match="contiguous"):
+        spk.spmv(V, plan, a)
+    empty = _spmv_layout(rng, [0, 0], 10, cuda)
+    before = dict(spk.launches)
+    got = spk.spmv(torch.ones(10, device=cuda, dtype=torch.float64), empty,
+                   torch.zeros(0, dtype=torch.float64, device=cuda))
+    assert spk.launches == before and torch.equal(got.cpu(), torch.zeros(2, dtype=torch.float64))
+
+
+def test_sparse_design_on_card(cuda):
+    """A dense + sparse + categorical design built for the card: its ops
+    launch spmv<T>, and the f64 Hessian is exactly symmetric."""
+    from scipy import sparse as sps
+
+    from tabmat_torch.ops import spmv_kernel as spk
+    from tabmat_torch.parallel.design import DeviceDesign
+
+    rng = np.random.default_rng(4)
+    n = 100_003
+    Xs = sps.random(n, 40, density=0.02, format="csc", random_state=rng)
+    split = tt.SplitMatrix([tt.DenseMatrix(rng.standard_normal((n, 3))), tt.SparseMatrix(Xs),
+                            tt.CategoricalMatrix(rng.integers(0, 30, n), categories=np.arange(30))])
+    design = DeviceDesign.from_matrix(split)
+    assert design.device.type == "cuda" and design.supports_sandwich
+    w = torch.as_tensor(rng.random(n), device=cuda)
+    before = dict(spk.launches)
+    H = design.sandwich(w)
+    H32 = design.astype_float(torch.float32).sandwich(w.float())
+    torch.cuda.synchronize()
+    assert spk.launches["spmv<double>"] == before["spmv<double>"] + 3
+    assert spk.launches["spmv<float>"] == before["spmv<float>"] + 3
+    assert torch.equal(H, H.T)
+    X = split.toarray()
+    H_ref = (X * w.cpu().numpy()[:, None]).T @ X
+    assert float((H.cpu() - torch.as_tensor(H_ref)).abs().max() / np.abs(H_ref).max()) <= 1e-13
+    assert float((H32.double().cpu() - torch.as_tensor(H_ref)).abs().max()
+                 / np.abs(H_ref).max()) <= 2e-5
+    sm = tt.SparseMatrix(Xs)
+    v = rng.standard_normal(40)
+    np.testing.assert_allclose(sm.matvec(v), Xs @ v, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(sm.sandwich(np.ones(n)), (Xs.T @ Xs).toarray(), rtol=0,
+                               atol=1e-11)

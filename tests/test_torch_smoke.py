@@ -126,3 +126,26 @@ def test_f32_limit_rejects_tf32():
     assert chip_smoke._relerr(f32, exact) < chip_smoke.F32_TOL / 10
     assert chip_smoke._relerr(tf32, exact) > 5 * chip_smoke.F32_TOL
     assert chip_smoke._relerr(chip_smoke.tf32_round(torch.tensor(X)).numpy(), tf32_round(X)) == 0
+
+
+def test_sparse_phases_on_cpu():
+    """The sparse phases at a small size: the sparse product against its
+    plain version (equal on the CPU), the standalone SparseMatrix against
+    scipy, ``sparse_wide``'s sandwich refused, and the sparse main path."""
+    smoke = _chip_smoke()
+    cpu = torch.device("cpu")
+    designs = smoke.sparse_designs({"sparse": (4000, 100), "sparse_narrow": (30_000, 3),
+                                    "sparse_wide": (400, 10_000)})
+    block = smoke.sparse_block(20_000)
+    cases = smoke.spmv_cases(cpu, designs, block, levels=50)
+    assert len(cases) == 9
+    assert smoke.phase_spmv_kernels(cpu, cases) == {"spmv<double>": 0.0, "spmv<float>": 0.0}
+    smoke.phase_sparse_standalone(designs, device=cpu)
+    report = smoke.phase_mixed_path(20_000, 5, 50, device=cpu, sparse=block,
+                                    fit_steps=smoke.SPARSE_FIT_STEPS)
+    assert report["design"].supports_sandwich
+    assert [b.kind for b in report["design"].blocks] == ["dense", "sparse", "cat"]
+    for beta in report["betas"].values():
+        assert beta.shape == (5 + 100 + 100,) and np.all(np.isfinite(beta))
+    plan, a, values, scale = cases[-1][1:]
+    assert smoke.spmv_bound(plan, a, values, scale)[1] == "bytes"

@@ -145,12 +145,15 @@ def test_split_indexing_names_pickle():
     for obj in (port, ref):
         obj.set_names(names.tolist(), "term")
     assert port.get_names("term") == ref.get_names("term") == names.tolist()
-    with pytest.raises(NotImplementedError, match="A4"):
-        port.multiply(np.ones(N))
+    # a row-scaled categorical is a SparseMatrix, and scipy input a sparse block
+    w = np.random.default_rng(16).standard_normal(N)
+    np.testing.assert_array_equal(port.multiply(w).toarray(), ref.multiply(w).toarray())
     from scipy import sparse as sps
 
-    with pytest.raises(NotImplementedError, match="A4"):
-        tt.hstack([port, sps.eye(N, 2, format="csc")])
+    eye = sps.eye(N, 2, format="csc")
+    stacked = tt.hstack([port, eye])
+    assert isinstance(stacked.matrices[-1], tt.SparseMatrix)
+    np.testing.assert_array_equal(stacked.toarray(), tm.hstack([ref, eye]).toarray())
 
 
 def test_hstack_and_standardize():

@@ -3,14 +3,16 @@
 
 Run from the repository root on a machine with a card:
 
-    python3 tools/profile_irls_step.py [--design dense|mixed] [--n 1000000]
+    python3 tools/profile_irls_step.py [--design dense|mixed|sparse] [--n 1000000]
         [--k 50] [--levels 1000] [--repeats 3]
 
 ``--design dense`` (the default) steps a gaussian GLM on a ``DeviceDesign``
 over an (n, k) float64 ``DenseMatrix``.  ``--design mixed`` steps a poisson
 GLM on the mixed design of ``bench.py:360-371``: a ``SplitMatrix`` of an
 (n, 5) ``DenseMatrix`` and two categoricals of ``--levels`` levels each
-(1,000,000 x 2005 by default).  Both use ``n_cg=16``.  For each repeat and
+(1,000,000 x 2005 by default).  ``--design sparse`` adds ``bench.py:282``'s
+sparse block, 100 columns at 1% (``scipy.sparse.random``, seed 0), after
+the dense one (1,000,000 x 2105 by default).  All use ``n_cg=16``.  For each repeat and
 each ``inner_precision`` it prints one JSON line:
 
 - ``host_ms``: host-clock step times with a synchronise after each step
@@ -79,9 +81,9 @@ def profile(step, steps: int = 10):
 
 
 def _kernel_modules():
-    from tabmat_torch.ops import gather_kernel, sandwich_kernel, segsum_kernel
+    from tabmat_torch.ops import gather_kernel, sandwich_kernel, segsum_kernel, spmv_kernel
 
-    return sandwich_kernel, gather_kernel, segsum_kernel
+    return sandwich_kernel, gather_kernel, segsum_kernel, spmv_kernel
 
 
 def tabmat_launches(step) -> dict:
@@ -97,7 +99,7 @@ def tabmat_launches(step) -> dict:
 
 
 def design_and_target(kind: str, n: int, k: int, levels: int, device):
-    """``(design, y, family)`` for the dense or the mixed design, from a seed."""
+    """``(design, y, family)`` for the dense, mixed or sparse design, from a seed."""
     rng = np.random.default_rng(7)
     if kind == "dense":
         X = rng.standard_normal((n, k))
@@ -106,12 +108,20 @@ def design_and_target(kind: str, n: int, k: int, levels: int, device):
         return design, torch.as_tensor(y, device=device), "gaussian"
     Xd = rng.standard_normal((n, 5))
     codes = [rng.integers(0, levels, n) for _ in range(2)]
+    sparse = []
+    if kind == "sparse":
+        from scipy import sparse as sps
+
+        sparse = [sps.random(n, 100, density=0.01, random_state=0, format="csc")]
     split = tt.SplitMatrix(
         [tt.DenseMatrix(Xd, device=device)]
+        + [tt.SparseMatrix(Xs, device=device) for Xs in sparse]
         + [tt.CategoricalMatrix(c, categories=np.arange(levels), device=device) for c in codes]
     )
     design = DeviceDesign.from_matrix(split)
     eta = Xd @ (rng.standard_normal(5) * 0.05)
+    for Xs in sparse:
+        eta += Xs @ (rng.standard_normal(Xs.shape[1]) * 0.1)
     for c in codes:
         eta += (rng.standard_normal(levels) * 0.1)[c]
     return design, torch.as_tensor(rng.poisson(np.exp(eta)).astype(np.float64), device=device), "poisson"
@@ -119,7 +129,7 @@ def design_and_target(kind: str, n: int, k: int, levels: int, device):
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--design", choices=("dense", "mixed"), default="dense")
+    parser.add_argument("--design", choices=("dense", "mixed", "sparse"), default="dense")
     parser.add_argument("--n", type=int, default=1_000_000)
     parser.add_argument("--k", type=int, default=50, help="dense design's width")
     parser.add_argument("--levels", type=int, default=1000,
