@@ -10,24 +10,35 @@ Phases, each printed as it runs:
 1. environment: the card's name and power limit, torch/CUDA/nvcc versions,
    TF32 off;
 2. build of the CUDA kernels from ``tabmat_torch/csrc``, one ``nvcc`` per
-   source, all at once (seconds, ptxas registers and spills);
-3. each kernel against its plain PyTorch version on the card: the sandwich
-   in f64 and f32 and the range prepass ``column_absmax``, at
-   1,000,000 x 50 and at edge widths, with negative and zero weights, and a
-   control that the f32 limit rejects a TF32-rounded product; the gather at
-   1,000,000 rows (codes with sentinels, a stack of two categoricals, and
-   sorted bounds), exactly equal; the segment sum at W in {1, 7, 1000,
-   10^6} segments, 1-D and 5 columns, with sentinels and empty segments;
-   the sparse segment product on the CSR and CSC layouts of the reference's
-   three sparse shapes (400,000 x 100, 3,000,000 x 3 and 40,000 x 10,000,
-   all at 1%), the pair plan and the stacked (code, column) plan of the
-   sparse main path and its sparse x dense cell (a per-row scale, 5
-   columns).  The sums are held within 1e-13 (f64) and 2e-5 (f32) of each
-   segment's sum of |term|, and bit-identical across two launches;
+   source (six sources), all at once (seconds, ptxas registers and spills);
+3. each kernel against its plain PyTorch version on the card: each of the
+   three sandwich kernels through its own wrapper (``sandwich<T>`` at
+   1,000,000 x 50 and k in {1, 7, 50, 64, 100, 128, 200};
+   ``sandwich_narrow<T>`` at 4,000,000 x 10 and k in {1, 2, 5, 10, 31, 32};
+   ``sandwich_mma<double>`` at 400,000 x 160 and k in {129, 160, 200, 1000}),
+   with negative and zero weights, exactly symmetric and bit-identical across
+   two launches, and a control that the f32 limit rejects a TF32-rounded
+   product; the width dispatch at 32/33 and 128/129; the range prepass
+   ``column_absmax``; the gather at 1,000,000 rows (codes with sentinels, a
+   stack of two categoricals, and sorted bounds), exactly equal; the segment
+   sum at W in {1, 7, 1000, 10^6} segments, 1-D and 5 columns, with
+   sentinels and empty segments; the sparse segment product on the CSR and
+   CSC layouts of the reference's three sparse shapes (400,000 x 100,
+   3,000,000 x 3 and 40,000 x 10,000, all at 1%), the pair plan and the
+   stacked (code, column) plan of the sparse main path and its sparse x
+   dense cell (a per-row scale, 5 columns).  The sums are held within 1e-13
+   (f64) and 2e-5 (f32) of each segment's sum of |term|, and bit-identical
+   across two launches;
 4. the dense main path at 1,000,000 x 50 float64: DenseMatrix sandwich,
    matvec and transpose_matvec with and without active sets, standardize and
    the standardized sandwich, then ``fit_glm`` for gaussian and poisson in
    both inner precisions, each held against the same algorithm in numpy;
+4a. the same checks on the reference bench's ``dense`` design, 4,000,000 x
+   10 (``tabmat_tpu/bench/generate.py:70``), built without ``device=``: the
+   narrow sandwich kernel in f64 and f32 steps, and no tiled one;
+4b. the same checks at 400,000 x 160, built without ``device=``, the widest
+   design on which the JAX package runs its slice-pair kernel by default:
+   the FP64 tensor-core kernel in f64 steps, ``sandwich<float>`` in f32;
 5. the mixed main path at 1,000,000 x (5 dense + 1000 + 1000 levels),
    built without ``device=``: DeviceDesign matvec, transpose_matvec and the
    explicit sandwich in f64 and f32 against scipy CSR, a float32
@@ -36,22 +47,28 @@ Phases, each printed as it runs:
    numpy/scipy;
 6. the standalone SparseMatrix at the three sparse shapes, built without
    ``device=``: matvec and transpose_matvec with active sets and ``out=``,
-   and the sandwich, against scipy; ``sparse_wide``'s sandwich, past both
-   of the port's sandwich budgets, must raise ``NotImplementedError``;
+   and the sandwich (but ``sparse_wide``'s, which is 6c), against scipy;
+6c. ``sparse_wide``'s sandwich, past the pair plan's and the densified
+   matrix's budgets: two row panels through the FP64 tensor-core kernel,
+   the full (10,000 x 10,000) S against the same panels through the plain
+   version on the card, a 200-column slab and a rows + cols restriction
+   against scipy on the host;
 7. the sparse main path at 1,000,000 x (5 dense + 100 sparse at 1% + 1000 +
    1000 levels), built without ``device=``: as phase 5;
 8. times from CUDA events after warm-up: each kernel, its plain version and
-   the one PyTorch call that computes the same function (cuSPARSE through
-   ``torch.sparse_csr_tensor`` for the sparse product), and one
-   ``irls_step`` on each path in each inner precision, with the kernel
-   launches per step.
+   the one PyTorch call that computes the same function (``torch.einsum``
+   for the sandwiches, cuSPARSE through ``torch.sparse_csr_tensor`` for the
+   sparse product), the new sandwich kernels at 1M x 5, 4M x 10, 400k x 160
+   and ``sparse_wide``'s panels, and one ``irls_step`` on each path in each
+   inner precision, with the kernel launches per step.
 
 The launch counts are set to 0 just before each main-path phase (4 to 7)
-and read just after; each path must launch its kernels, the mixed path the
-seven of the dense and categorical kernels, and the sparse main path both
-sparse products.  Any failed check raises, so the script exits 0 only when
-every check passed.  The last three lines are the ``kernels`` JSON object, the
-card's name and power limit, and ``{"ok": true, "device": {...}}``.
+and read just after; each path must launch its kernels (the narrow and
+wide paths and the mixed and sparse paths' 5-column dense cell the width
+dispatch's kernels, the sparse main path both sparse products).  Any failed
+check raises, so the script exits 0 only when every check passed.  The
+last three lines are the ``kernels`` JSON object (twelve instantiations),
+the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 Without CUDA it exits non-zero and prints no result.
 """
 
@@ -66,6 +83,29 @@ import torch
 N, K = 1_000_000, 50
 EDGE_N = 100_003  # a multiple of no tile or stage size
 EDGE_KS = (1, 7, 64, 128, 200)
+# path (a): the reference bench's dense design (tabmat_tpu/bench/generate.py:70)
+NARROW_N, NARROW_K = 4_000_000, 10
+# path (b): the widest design on which the JAX package runs its slice-pair
+# kernel by default (128 < k <= 160 and n*k <= 2^26, ozaki.py:136-154)
+WIDE_N, WIDE_K = 400_000, 160
+# sandwich kernel -> (its full-size shape, the widths it is held at on
+# EDGE_N rows); the tiled kernel takes any width, the wrappers launch it
+# directly
+SANDWICH_CASES = {
+    "sandwich<double>": ((N, K), (1, 7, 50, 64, 100, 128, 200)),
+    "sandwich<float>": ((N, K), (1, 7, 50, 64, 100, 128, 200)),
+    "sandwich_narrow<double>": ((NARROW_N, NARROW_K), (1, 2, 5, 10, 31, 32)),
+    "sandwich_narrow<float>": ((NARROW_N, NARROW_K), (1, 2, 5, 10, 31, 32)),
+    "sandwich_mma<double>": ((WIDE_N, WIDE_K), (129, 160, 200, 1000)),
+}
+# the width dispatch at its boundaries: (k, dtype name) -> kernel
+ROUTES = {
+    (32, "float64"): "sandwich_narrow<double>", (33, "float64"): "sandwich<double>",
+    (128, "float64"): "sandwich<double>", (129, "float64"): "sandwich_mma<double>",
+    (32, "float32"): "sandwich_narrow<float>", (33, "float32"): "sandwich<float>",
+    (128, "float32"): "sandwich<float>", (129, "float32"): "sandwich<float>",
+}
+SLAB = 200  # columns of sparse_wide's S held against scipy on the host
 # the mixed design of bench.py:360-371: 5 dense columns and two 1000-level
 # categoricals, so the cat x cat cell has 10^6 segments
 MIX_KD, MIX_LEVELS = 5, 1000
@@ -100,10 +140,20 @@ OP_TOL = 1e-12
 
 # name -> (source, the Pallas kernel it replaces).  gather<T> also covers
 # the window take (pallas_window_take.py:109, :130), segsum<T> both one-hot
-# segment sums (pallas_segsum.py:97, pallas_segsum_bucketed.py:64).
+# segment sums (pallas_segsum.py:97, pallas_segsum_bucketed.py:64);
+# sandwich<double> also the unpacked v5 and v3 kernels
+# (pallas_sandwich_v5.py:99, pallas_sandwich_v3.py:135), sandwich_narrow<T>
+# the packed modes of v4 and v5, sandwich_mma<double> also the unsliced
+# pair kernel (pallas_pairs.py:29).
 KERNELS = {
     "sandwich<double>": ("tabmat_torch/csrc/sandwich.cu", "tabmat_tpu/ops/pallas_sandwich_v4.py:141"),
     "sandwich<float>": ("tabmat_torch/csrc/sandwich.cu", "tabmat_tpu/ops/pallas_kernels.py:34"),
+    "sandwich_narrow<double>": ("tabmat_torch/csrc/sandwich_narrow.cu",
+                                "tabmat_tpu/ops/pallas_sandwich_v3.py:316"),
+    "sandwich_narrow<float>": ("tabmat_torch/csrc/sandwich_narrow.cu",
+                               "tabmat_tpu/ops/pallas_kernels.py:34"),
+    "sandwich_mma<double>": ("tabmat_torch/csrc/sandwich_mma.cu",
+                             "tabmat_tpu/ops/pallas_pairs.py:103"),
     "column_absmax": ("tabmat_torch/csrc/sandwich.cu", "tabmat_tpu/ops/pallas_sandwich_v4.py:491"),
     "gather<double>": ("tabmat_torch/csrc/gather.cu", "tabmat_tpu/ops/pallas_gather.py:110"),
     "gather<float>": ("tabmat_torch/csrc/gather.cu", "tabmat_tpu/ops/pallas_gather.py:89"),
@@ -113,7 +163,12 @@ KERNELS = {
     "spmv<float>": ("tabmat_torch/csrc/spmv.cu", "tabmat_tpu/ops/pallas_tmv_fused.py:179"),
 }
 DENSE_KERNELS = ("sandwich<double>", "sandwich<float>", "column_absmax")
+NARROW_KERNELS = ("sandwich_narrow<double>", "sandwich_narrow<float>", "column_absmax")
+WIDE_KERNELS = ("sandwich_mma<double>", "sandwich<float>", "column_absmax")
 SPARSE_KERNELS = ("spmv<double>", "spmv<float>")
+# the mixed path's 5-column dense cell takes the narrow kernel
+MIXED_KERNELS = NARROW_KERNELS + ("gather<double>", "gather<float>", "segsum<double>",
+                                  "segsum<float>")
 
 # the least time for a function: its bytes over the memory rate, or its
 # operations over the peak rate for the type, whichever is larger (H100 SXM
@@ -189,7 +244,7 @@ def phase_build() -> None:
     from tabmat_torch import _build
 
     t0 = time.perf_counter()
-    names = ("sandwich", "gather", "segsum", "spmv")
+    names = _build.SOURCES
     _build.build_all(names)
     print(f"[2] build of {len(names)} sources in parallel: {time.perf_counter() - t0:.2f} s")
     for name in names:
@@ -209,48 +264,80 @@ def tf32_round(x: torch.Tensor) -> torch.Tensor:
     return b.to(torch.int32).view(torch.float32)
 
 
-def phase_kernels(device, n: int, k: int, edge_n: int, edge_ks) -> dict:
-    """Each kernel against its plain version; returns max|Δ| at (n, k) by kernel."""
+def _tf32_control(X, d) -> None:
+    """The f32 limit must reject a product of TF32-rounded inputs."""
     from tabmat_torch.ops import sandwich_kernel as sk
 
+    Xt, dt = tf32_round(X).double(), tf32_round(d).double()
+    exact = sk.sandwich_plain(X.double(), d.double())
+    ctl = _relerr(sk.sandwich_plain(Xt, dt).cpu(), exact.cpu())
+    print(f"  control: TF32-rounded inputs give relerr {ctl:.3e}, "
+          f"over the f32 limit {F32_TOL:.0e}: {ctl > F32_TOL}")
+    if not ctl > F32_TOL:
+        raise AssertionError("the f32 limit does not reject a TF32 product")
+
+
+def phase_kernels(device, cases=None, edge_n: int = EDGE_N, absmax_shapes=None) -> dict:
+    """Each sandwich kernel and the prepass against their plain versions, and
+    the width dispatch at its boundaries; returns max|Δ| at each kernel's
+    full-size shape.  ``cases`` maps a sandwich kernel to its full-size shape
+    and its widths on ``edge_n`` rows (default ``SANDWICH_CASES``)."""
+    from tabmat_torch.ops import sandwich_kernel as sk
+
+    cases = SANDWICH_CASES if cases is None else cases
+    if absmax_shapes is None:
+        absmax_shapes = [(N, K)] + [(edge_n, kk) for kk in EDGE_KS]
     print(f"[3] kernels vs plain on {device}", flush=True)
     gen = torch.Generator(device=device).manual_seed(3)
+    on_card = device.type == "cuda"
     max_abs = {}
-    shapes = [(n, k)] + [(edge_n, kk) for kk in edge_ks]
-    for dtype, tol in ((torch.float64, F64_TOL), (torch.float32, F32_TOL)):
-        name = f"sandwich<{'double' if dtype == torch.float64 else 'float'}>"
-        for rows, cols in shapes:
+    for name, (full, widths) in cases.items():
+        dtype = torch.float64 if name.endswith("<double>") else torch.float32
+        tol = F64_TOL if dtype == torch.float64 else F32_TOL
+        wrapper = sk.KERNEL_WRAPPERS[name]
+        for rows, cols in [full] + [(edge_n, kk) for kk in widths]:
             X = torch.randn(rows, cols, device=device, dtype=dtype, generator=gen)
             d = torch.randn(rows, device=device, dtype=dtype, generator=gen)
             d[::5] = 0.0  # zeros, as masked rows arrive
-            S = sk.sandwich(X, d)
+            before = sk.launches[name]
+            S, again = wrapper(X, d), wrapper(X, d)
             P = sk.sandwich_plain(X, d)
-            if device.type == "cuda":
+            if on_card:
                 torch.cuda.synchronize(device)
-                # the kernel mirrors its upper triangle
+                if sk.launches[name] != before + 2:
+                    raise AssertionError(f"{name} {rows}x{cols} launched no kernel")
+                # the kernels mirror their upper triangle and sum in a fixed order
                 if not torch.equal(S, S.T):
                     raise AssertionError(f"{name} {rows}x{cols} is not symmetric")
+                if not torch.equal(S, again):
+                    raise AssertionError(f"{name} {rows}x{cols}: two launches differ")
             err = float((S - P).abs().max())
-            if (rows, cols) == (n, k):
+            if (rows, cols) == full:
                 max_abs[name] = err
                 if dtype == torch.float32:
-                    # control: the f32 limit must reject TF32-rounded inputs
-                    Xt, dt = tf32_round(X).double(), tf32_round(d).double()
-                    exact = sk.sandwich_plain(X.double(), d.double())
-                    ctl = _relerr(sk.sandwich_plain(Xt, dt).cpu(), exact.cpu())
-                    print(f"  control: TF32-rounded inputs give relerr {ctl:.3e}, "
-                          f"over the f32 limit {F32_TOL:.0e}: {ctl > F32_TOL}")
-                    if not ctl > F32_TOL:
-                        raise AssertionError("the f32 limit does not reject a TF32 product")
-                    del Xt, dt, exact
-            _check(f"{name} {rows}x{cols} relerr", err / float(P.abs().max()), tol)
-    for rows, cols in shapes:
+                    _tf32_control(X, d)
+            _check(f"{name} {rows}x{cols} relerr (symmetric, repeats exactly)",
+                   err / float(P.abs().max()), tol)
+            del X, d, S, again, P
+    for (k, dtype_name), want in ROUTES.items():
+        dtype = getattr(torch, dtype_name)
+        name = sk.route(k, dtype)
+        X = torch.randn(edge_n, k, device=device, dtype=dtype, generator=gen)
+        d = torch.rand(edge_n, device=device, dtype=dtype, generator=gen)
+        before = dict(sk.launches)
+        sk.sandwich(X, d)
+        launched = [key for key in sk.launches if sk.launches[key] != before[key]]
+        print(f"  route k={k} {dtype_name}: {name}, launched {launched}")
+        if name != want or (on_card and launched != [want]):
+            raise AssertionError(f"the dispatch at k={k} {dtype_name} took {name} "
+                                 f"(launched {launched}), not {want}")
+    for rows, cols in absmax_shapes:
         X = torch.randn(rows, cols, device=device, dtype=torch.float32, generator=gen)
         d = torch.randn(rows, device=device, dtype=torch.float64, generator=gen)
         d[::5] = 0.0
         d[1] = 1e300  # beyond float32: the prepass reads f64 weights
         err = float((sk.column_absmax(X, d) - sk.column_absmax_plain(X, d)).abs().max())
-        if (rows, cols) == (n, k):
+        if (rows, cols) == absmax_shapes[0]:
             max_abs["column_absmax"] = err
         _check(f"column_absmax {rows}x{cols} max|diff|", err, ABSMAX_TOL)
     return max_abs
@@ -444,18 +531,71 @@ def phase_sparse_standalone(designs: dict, device=None, seed: int = 2) -> None:
         want[cols] += sub.T @ r[rows]
         _check(f"{name} transpose_matvec rows+cols out= relerr", _relerr(out_t.cpu(), want), OP_TOL)
         if name == "sparse_wide":
-            try:
-                m.sandwich(d)
-            except NotImplementedError as err:
-                print(f"  {name} sandwich raises NotImplementedError as it must: {err}")
-            else:
-                raise AssertionError("sparse_wide's sandwich is past both budgets and must raise")
-            continue
+            continue  # its sandwich, past both budgets, is phase 6c
         H_ref = (X.T @ sps.csc_matrix(X.multiply(d[:, None]))).toarray()
         _check(f"{name} sandwich relerr vs scipy", _relerr(m.sandwich(d), H_ref), F64_TOL)
         sub_ref = (sub.T @ sps.csc_matrix(sub.multiply(d[rows, None]))).toarray()
         _check(f"{name} sandwich rows+cols relerr",
                _relerr(m.sandwich(d, rows=rows, cols=cols), sub_ref), F64_TOL)
+
+
+def phase_sparse_wide(X, device=None, seed: int = 4, slab: int = SLAB) -> dict:
+    """``sparse_wide``'s sandwich, past the pair plan's and the densified
+    matrix's budgets: row panels through the width dispatch.  The full S
+    against the same panels through the plain version on the device, a
+    ``slab``-column slab and a rows + cols restriction against scipy on the
+    host.  ``device=None`` builds without ``device=`` (the card)."""
+    import tabmat_torch as tt
+    from scipy import sparse as sps
+    from tabmat_torch.models import sparse as port_sparse
+    from tabmat_torch.ops import sparse_ops
+    from tabmat_torch.ops.sandwich_kernel import sandwich_plain
+
+    n, k = X.shape
+    print(f"[6c] sparse_wide sandwich {n}x{k} ({X.nnz} nonzeros), "
+          f"device={'default' if device is None else device}", flush=True)
+    m = tt.SparseMatrix(X) if device is None else tt.SparseMatrix(X, device=device)
+    if device is None and m.device.type != "cuda":
+        raise AssertionError(f"a SparseMatrix built without device= landed on {m.device}")
+    if m._pair_parts() is not None or m._dense_mirror() is not None:
+        raise AssertionError("sparse_wide must be past the pair plan's and the densified "
+                             "matrix's budgets")
+    rng = np.random.default_rng(seed)
+    d_np = rng.random(n) - 0.25
+    d_np[::11] = 0.0
+    d = torch.as_tensor(d_np, device=m.device)
+    t0 = time.perf_counter()
+    S = m.sandwich(d)
+    sync = torch.cuda.synchronize if m.device.type == "cuda" else (lambda: None)
+    sync()
+    seconds = time.perf_counter() - t0
+    data, plan = m._csr_parts()
+    P = torch.zeros_like(S)
+    panels = 0
+    for start, stop, panel in sparse_ops.csr_row_panels(
+        data, plan, m.array_csr.indptr, k, port_sparse.DENSE_SANDWICH_MAX_ELEMENTS
+    ):
+        P += sandwich_plain(panel, d[start:stop])
+        panels += 1
+        del panel
+    print(f"  {panels} row panels of at most {port_sparse.DENSE_SANDWICH_MAX_ELEMENTS} "
+          f"elements; the sandwich took {seconds:.3f} s on the host clock")
+    if m.device.type == "cuda" and not torch.equal(S, S.T):
+        raise AssertionError("sparse_wide's S is not exactly symmetric")
+    _check("sparse_wide S relerr vs the same panels through the plain version",
+           float((S - P).abs().max() / P.abs().max()), F64_TOL)
+    del P
+    Xr = X.tocsr()
+    slab_ref = (Xr.T @ sps.csr_matrix(Xr[:, :slab].multiply(d_np[:, None]))).toarray()
+    _check(f"sparse_wide S[:, :{slab}] relerr vs scipy", _relerr(S[:, :slab].cpu(), slab_ref),
+           F64_TOL)
+    rows = np.sort(rng.choice(n, n // 2, replace=False))
+    cols = np.sort(rng.choice(k, 3 * slab // 2, replace=False))
+    sub = Xr[rows][:, cols]
+    sub_ref = (sub.T @ sps.csr_matrix(sub.multiply(d_np[rows, None]))).toarray()
+    _check("sparse_wide sandwich rows+cols relerr vs scipy",
+           _relerr(m.sandwich(d_np, rows=rows, cols=cols), sub_ref), F64_TOL)
+    return {"matrix": m, "d": d}
 
 
 def _numpy_irls(X, y, family, steps, n_cg, inner):
@@ -494,18 +634,23 @@ def _numpy_irls(X, y, family, steps, n_cg, inner):
     return beta
 
 
-def phase_main_path(device, n: int, k: int, fit_steps: int = FIT_STEPS, seed: int = 0) -> dict:
-    """The dense main path through the public API, checked against numpy."""
+def phase_main_path(device, n: int, k: int, fit_steps: int = FIT_STEPS, seed: int = 0,
+                    label: str = "[4] main path") -> dict:
+    """A dense path through the public API, checked against numpy;
+    ``device=None`` builds without ``device=`` (the card)."""
     import tabmat_torch as tt
     from tabmat_torch.ops import sandwich_kernel as sk
 
-    print(f"[4] main path {n}x{k} float64 on {device}", flush=True)
+    print(f"{label} {n}x{k} float64, device={'default' if device is None else device}",
+          flush=True)
     rng = np.random.default_rng(seed)
     X_np = rng.standard_normal((n, k))
     d_np = rng.random(n) - 0.25
     d_np[::11] = 0.0
-    dm = tt.DenseMatrix(X_np, device=device)
-    d = torch.as_tensor(d_np, device=device)
+    dm = tt.DenseMatrix(X_np) if device is None else tt.DenseMatrix(X_np, device=device)
+    if device is None and dm.device.type != "cuda":
+        raise AssertionError(f"a DenseMatrix built without device= landed on {dm.device}")
+    d = torch.as_tensor(d_np, device=dm.device)
 
     _check("sandwich relerr", _relerr(dm.sandwich(d).cpu(), (X_np * d_np[:, None]).T @ X_np), F64_TOL)
     rows = np.sort(rng.choice(n, n // 2, replace=False))
@@ -681,14 +826,15 @@ def _time_ms(fn, reps: int = 20, warmup: int = 3, hold: bool = True) -> float:
         cycles *= 4
 
 
-def _compare(label: str, card: str, kernel, plain, library=None) -> dict:
+def _compare(label: str, card: str, kernel, plain, library=None, reps: int = 20,
+             warmup: int = 3) -> dict:
     """Mean CUDA-event ms of each side, run in turns: plain, kernel, library,
     library, kernel, plain."""
     fns = {"plain": plain, "kernel": kernel, "library": library}
     runs = {"plain": [], "kernel": [], "library": []}
     for which in ("plain", "kernel", "library", "library", "kernel", "plain"):
         if fns[which] is not None:
-            runs[which].append(_time_ms(fns[which]))
+            runs[which].append(_time_ms(fns[which], reps=reps, warmup=warmup))
     means = {key: (sum(v) / len(v) if v else None) for key, v in runs.items()}
     print(f"  {label}: kernel {runs['kernel']} ms, plain {runs['plain']} ms, "
           f"library {runs['library'] or 'none'} ms ({card})")
@@ -712,39 +858,89 @@ def spmv_bound(plan, a, values, scale):
 ROW15_CASE = "sparse 400000x100 CSC tmv"
 
 
+def sandwich_bound(n: int, k: int, size: int):
+    """``(bound_ms, bound_by)`` of one dense sandwich: X, d and S moved once;
+    the upper triangle's multiply-adds and the scaling by d."""
+    return bound(n * k * size + n * size + k * k * size, n * k * (k + 1) + n * k)
+
+
+# sandwich kernel -> the shapes phase 8 times it at; the first is its row
+# in the kernels line (the 1M x 50 main path, path (a), path (b))
+SANDWICH_TIMES = {
+    "sandwich<double>": ((N, K),),
+    "sandwich<float>": ((N, K),),
+    "sandwich_narrow<double>": ((NARROW_N, NARROW_K), (N, MIX_KD)),
+    "sandwich_narrow<float>": ((NARROW_N, NARROW_K), (N, MIX_KD)),
+    "sandwich_mma<double>": ((WIDE_N, WIDE_K),),
+}
+
+
 def phase_times(device, n: int, k: int, card: str, mixed: dict, sparse: dict,
-                cases: list) -> dict:
+                cases: list, wide: dict) -> dict:
     """Kernel, plain and library times with their bounds, and IRLS step times."""
     import tabmat_torch as tt
     from torch.nn import functional as F
     from tabmat_torch.glm import irls_step
+    from tabmat_torch.models import sparse as port_sparse
     from tabmat_torch.ops import gather_kernel as gk
     from tabmat_torch.ops import sandwich_kernel as sk
     from tabmat_torch.ops import segsum_kernel as ssk
+    from tabmat_torch.ops import sparse_ops
     from tabmat_torch.ops import spmv_kernel as spk
     from tabmat_torch.parallel.design import DeviceDesign
 
     print(f"[8] times on {card}", flush=True)
     gen = torch.Generator(device=device).manual_seed(5)
     times = {}
-    for name, x_dtype, d_dtype in (("sandwich<double>", torch.float64, torch.float64),
-                                   ("sandwich<float>", torch.float32, torch.float32),
-                                   ("column_absmax", torch.float32, torch.float64)):
-        X = torch.randn(n, k, device=device, dtype=x_dtype, generator=gen)
-        d = torch.rand(n, device=device, dtype=d_dtype, generator=gen)
-        size = X.element_size()
-        if name == "column_absmax":
-            t = _compare(f"{name} {n}x{k}", card, lambda: sk.column_absmax(X, d),
-                         lambda: sk.column_absmax_plain(X, d))
-            t["bound"] = bound(n * k * size + n * 8 + k * 8, 2 * n * k)
-        else:
-            t = _compare(f"{name} {n}x{k}", card, lambda: sk.sandwich(X, d),
+    for name, shapes in SANDWICH_TIMES.items():
+        dtype = torch.float64 if name.endswith("<double>") else torch.float32
+        wrapper = sk.KERNEL_WRAPPERS[name]
+        for rows, cols in shapes:
+            X = torch.randn(rows, cols, device=device, dtype=dtype, generator=gen)
+            d = torch.rand(rows, device=device, dtype=dtype, generator=gen)
+            t = _compare(f"{name} {rows}x{cols}", card, lambda: wrapper(X, d),
                          lambda: sk.sandwich_plain(X, d),
                          lambda: torch.einsum("ni,n,nj->ij", X, d, X))
-            # the upper triangle's multiply-adds and the scaling by d
-            t["bound"] = bound(n * k * size + n * size + k * k * size, n * k * (k + 1) + n * k)
-        times[name] = t
-        del X, d
+            t["bound"] = sandwich_bound(rows, cols, X.element_size())
+            print(f"    bound {t['bound'][0]:.6f} ms by {t['bound'][1]}")
+            times[f"{name} {rows}x{cols}"] = t
+            times.setdefault(name, t)
+            del X, d
+    X = torch.randn(n, k, device=device, dtype=torch.float32, generator=gen)
+    d = torch.rand(n, device=device, dtype=torch.float64, generator=gen)
+    t = _compare(f"column_absmax {n}x{k}", card, lambda: sk.column_absmax(X, d),
+                 lambda: sk.column_absmax_plain(X, d))
+    t["bound"] = bound(n * k * 4 + n * 8 + k * 8, 2 * n * k)
+    times["column_absmax"] = t
+    del X, d
+
+    # sparse_wide's sandwich: its row panels, densified once, through the
+    # tensor-core kernel into one S, against the same panels through the
+    # plain version and einsum (each a few hundred ms: two repeats)
+    m, dw = wide["matrix"], wide["d"]
+    nw, kw = m.shape
+    data, plan = m._csr_parts()
+    panels = [(panel, dw[start:stop]) for start, stop, panel in sparse_ops.csr_row_panels(
+        data, plan, m.array_csr.indptr, kw, port_sparse.DENSE_SANDWICH_MAX_ELEMENTS)]
+    S = torch.zeros((kw, kw), dtype=torch.float64, device=device)
+
+    def over_panels(fn):
+        def run():
+            for panel, dp in panels:
+                fn(panel, dp)
+        return run
+
+    t = _compare(f"sandwich_mma<double> sparse_wide {nw}x{kw}, {len(panels)} panels", card,
+                 over_panels(lambda A, dp: sk.sandwich_mma(A, dp, out=S)),
+                 over_panels(lambda A, dp: S.add_(sk.sandwich_plain(A, dp))),
+                 over_panels(lambda A, dp: S.add_(torch.einsum("ni,n,nj->ij", A, dp, A))),
+                 reps=2, warmup=1)
+    t["bound"] = sandwich_bound(nw, kw, 8)
+    print(f"    bound {t['bound'][0]:.6f} ms by {t['bound'][1]} (the densified panels); "
+          f"the sparse product itself needs {sparse_ops.pair_count(m.array_csr)} "
+          f"multiply-adds and writes {kw * kw * 8} bytes of S")
+    times[f"sandwich_mma<double> sparse_wide {nw}x{kw}"] = t
+    del panels, S
 
     design, y = mixed["design"], mixed["y"]
     cat = design._block("cat")
@@ -823,12 +1019,17 @@ def phase_times(device, n: int, k: int, card: str, mixed: dict, sparse: dict,
             del A, V, S
 
     rng = np.random.default_rng(7)
-    X_np = rng.standard_normal((n, k))
-    dense = DeviceDesign.from_matrix(tt.DenseMatrix(X_np, device=device))
-    y_dense = torch.as_tensor(X_np @ rng.standard_normal(k) + 0.1 * rng.standard_normal(n),
-                              device=device)
-    steps = (("dense gaussian", dense, y_dense, "gaussian"), ("mixed poisson", design, y, "poisson"),
-             ("sparse poisson", sparse["design"], sparse["y"], "poisson"))
+    steps = []
+    for label, (rows, cols) in (("dense", (n, k)), ("dense narrow", (NARROW_N, NARROW_K)),
+                                ("dense wide", (WIDE_N, WIDE_K))):
+        X_np = rng.standard_normal((rows, cols))
+        dense = DeviceDesign.from_matrix(tt.DenseMatrix(X_np))
+        y_dense = torch.as_tensor(
+            X_np @ rng.standard_normal(cols) + 0.1 * rng.standard_normal(rows), device=device)
+        steps.append((f"{label} gaussian", dense, y_dense, "gaussian"))
+        del X_np
+    steps += [("mixed poisson", design, y, "poisson"),
+              ("sparse poisson", sparse["design"], sparse["y"], "poisson")]
     for label, dd, yy, family in steps:
         w = torch.ones(dd.shape[0], dtype=torch.float64, device=device)
         b0 = torch.zeros(dd.shape[1], dtype=torch.float64, device=device)
@@ -856,7 +1057,7 @@ def main() -> int:
     device = torch.device("cuda", 0)
     card = phase_environment()
     phase_build()
-    max_abs = phase_kernels(device, N, K, EDGE_N, EDGE_KS)
+    max_abs = phase_kernels(device)
     max_abs.update(phase_cat_kernels(device, N))
     t0 = time.perf_counter()
     designs, block = sparse_designs(), sparse_block(N)
@@ -866,26 +1067,39 @@ def main() -> int:
 
     main_launches = []
 
-    def run_main_path(label, phase, *args, must_launch=(), **kwargs):
+    def run_main_path(what, phase, *args, must_launch=(), must_not=(), **kwargs):
         reset_launch_counts()
         result = phase(*args, **kwargs)
         counts = launch_counts()
-        print(f"  kernel launches in the {label}: {counts}", flush=True)
+        print(f"  kernel launches in the {what}: {counts}", flush=True)
         missing = [name for name in must_launch if counts[name] == 0]
         if missing:
-            raise AssertionError(f"the {label} did not launch {missing}")
+            raise AssertionError(f"the {what} did not launch {missing}")
+        extra = [name for name in must_not if counts[name] != 0]
+        if extra:
+            raise AssertionError(f"the {what} launched {extra}")
         main_launches.append(counts)
         return result
 
+    tiled = ("sandwich<double>", "sandwich<float>")
     run_main_path("dense main path", phase_main_path, device, N, K, must_launch=DENSE_KERNELS)
+    run_main_path("narrow dense path", phase_main_path, None, NARROW_N, NARROW_K,
+                  label="[4a] narrow dense path", must_launch=NARROW_KERNELS,
+                  must_not=tiled + ("sandwich_mma<double>",))
+    run_main_path("wide dense path", phase_main_path, None, WIDE_N, WIDE_K,
+                  label="[4b] wide dense path", must_launch=WIDE_KERNELS,
+                  must_not=("sandwich<double>",))
     mixed = run_main_path("mixed main path", phase_mixed_path, N, MIX_KD, MIX_LEVELS,
-                          must_launch=[n for n in KERNELS if n not in SPARSE_KERNELS])
+                          must_launch=MIXED_KERNELS, must_not=tiled + ("sandwich_mma<double>",))
     run_main_path("standalone sparse phase", phase_sparse_standalone, designs,
                   must_launch=SPARSE_KERNELS[:1])
+    wide = run_main_path("sparse_wide sandwich", phase_sparse_wide, designs["sparse_wide"],
+                         must_launch=("sandwich_mma<double>",))
     sparse = run_main_path("sparse main path", phase_mixed_path, N, MIX_KD, MIX_LEVELS,
-                           sparse=block, fit_steps=SPARSE_FIT_STEPS, must_launch=SPARSE_KERNELS)
+                           sparse=block, fit_steps=SPARSE_FIT_STEPS,
+                           must_launch=SPARSE_KERNELS + NARROW_KERNELS[:2])
 
-    times = phase_times(device, N, K, card, mixed, sparse, cases)
+    times = phase_times(device, N, K, card, mixed, sparse, cases, wide)
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         bound_ms, bound_by = times[name]["bound"]

@@ -21,6 +21,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "tabmat_torch"
+# every source of csrc/, each its own library
+SOURCES = ("sandwich", "sandwich_narrow", "sandwich_mma", "gather", "segsum", "spmv")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -99,8 +101,9 @@ def library(name: str) -> ctypes.CDLL:
         return lib
 
 
-def build_all(names) -> None:
-    """Build and load several sources at once: one ``nvcc`` each, in parallel."""
+def build_all(names=SOURCES) -> None:
+    """Build and load several sources (all by default) at once: one ``nvcc``
+    each, in parallel."""
     names = list(names)
     with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
         for future in [pool.submit(library, name) for name in names]:

@@ -7,7 +7,11 @@
 //     (full f32, HIGHEST) by sandwich_partial/sandwich_reduce.  Hopper has
 //     native FP64, so one template computes the product directly in the
 //     input type.  f32 uses plain FFMA (never TF32), as the Pallas kernel
-//     used Precision.HIGHEST;
+//     used Precision.HIGHEST.  The wrapper's width dispatch sends it the
+//     middle widths, 33 <= k <= 128 in f64 and k > 32 in f32, where it
+//     also stands for the unpacked v5 and v3 kernels
+//     (pallas_sandwich_v5.py:_v5_kernel, pallas_sandwich_v3.py:_v3_kernel);
+//     sandwich_narrow.cu takes k <= 32, sandwich_mma.cu f64 k > 128;
 //   - tabmat_tpu/ops/pallas_sandwich_v4.py:_max_kernel by column_absmax.
 //     On the TPU it picks the plane exponents that keep the scaled values in
 //     range.  The port's narrow format is the f32 Hessian of the default
@@ -29,13 +33,16 @@
 //           k <= 64 there is one tile pair, so X is read exactly once.  The
 //           block writes its tile to partial[split].
 //   pass 2: one thread per output entry sums the splits in a fixed order and
-//           reads the upper-triangular entry for both (i, j) and (j, i).
+//           reads the upper-triangular entry for both (i, j) and (j, i)
+//           (sandwich_reduce.cuh); with accumulate it adds them to out.
 //
 // No atomics: the result is the same from run to run and exactly symmetric.
 // The C functions launch on the given stream, do not synchronise and return
 // cudaGetLastError().
 
 #include <cuda_runtime.h>
+
+#include "sandwich_reduce.cuh"
 
 namespace {
 
@@ -129,36 +136,15 @@ sandwich_partial(const T* __restrict__ X, const T* __restrict__ d,
 }
 
 template <typename T>
-__global__ void sandwich_reduce(const T* __restrict__ partial, T* __restrict__ out,
-                                int k, int splits) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long kk = (long long)k * k;
-  if (idx >= kk) return;
-  const int i = (int)(idx / k);
-  const int j = (int)(idx % k);
-  // the block of tile pair (tile(lo), tile(hi)) wrote entry (lo, hi)
-  const int lo = i < j ? i : j;
-  const int hi = i < j ? j : i;
-  const T* src = partial + (long long)lo * k + hi;
-  T s = T(0);
-  for (int r = 0; r < splits; ++r) s += src[r * kk];
-  out[idx] = s;
-}
-
-template <typename T>
 int launch(const T* X, const T* d, T* out, T* partial, long long n, int k,
-           int splits, long long rows_per_split, void* stream) {
+           int splits, long long rows_per_split, int accumulate, void* stream) {
   const int nt = (k + TILE - 1) / TILE;
   const dim3 grid(nt * (nt + 1) / 2, splits);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   sandwich_partial<T><<<grid, THREADS, 0, s>>>(X, d, partial, n, k, rows_per_split);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const long long kk = (long long)k * k;
-  const int reduce_threads = 256;
-  const unsigned reduce_blocks = (unsigned)((kk + reduce_threads - 1) / reduce_threads);
-  sandwich_reduce<T><<<reduce_blocks, reduce_threads, 0, s>>>(partial, out, k, splits);
-  return (int)cudaGetLastError();
+  return launch_sandwich_reduce<T>(partial, out, k, splits, accumulate, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -231,17 +217,18 @@ int tabmat_column_absmax(const float* X, const double* d, double* out, double* p
   return (int)cudaGetLastError();
 }
 
-// partial holds splits * k * k elements; out holds k * k.
+// partial holds splits * k * k elements; out holds k * k (added to when
+// accumulate is not 0).
 int tabmat_sandwich_f64(const double* X, const double* d, double* out, double* partial,
                         long long n, int k, int splits, long long rows_per_split,
-                        void* stream) {
-  return launch<double>(X, d, out, partial, n, k, splits, rows_per_split, stream);
+                        int accumulate, void* stream) {
+  return launch<double>(X, d, out, partial, n, k, splits, rows_per_split, accumulate, stream);
 }
 
 int tabmat_sandwich_f32(const float* X, const float* d, float* out, float* partial,
                         long long n, int k, int splits, long long rows_per_split,
-                        void* stream) {
-  return launch<float>(X, d, out, partial, n, k, splits, rows_per_split, stream);
+                        int accumulate, void* stream) {
+  return launch<float>(X, d, out, partial, n, k, splits, rows_per_split, accumulate, stream);
 }
 
 // Blocks of the first pass that one SM holds at once, for the wrapper's

@@ -10,7 +10,10 @@ segment product (``ops/spmv_kernel.py``) on the matrix's device:
 - ``transpose_matvec`` → the CSC layout (segments = columns);
 - ``sandwich``         → the pair plan (within-row nonzero pairs keyed by
   column pair) while it fits its budgets, else the densified matrix on the
-  device through the dense sandwich kernel; past both budgets it raises;
+  device through the dense sandwich kernel; past both budgets row panels of
+  the CSR layout, each densified on the device and added in order into one
+  (k, k) result by the dense sandwich's width dispatch (the FP64 tensor
+  cores at the reference's ``sparse_wide``, 40k × 10k);
 - cross vs dense       → the CSC layout with ``d`` as a per-row scale.
 
 The reference's six tmv and five matvec routes (mirrors, plane caches,
@@ -44,7 +47,9 @@ from ..utils import (
 )
 from .base import MatrixBase
 
-# The densified matrix serves the sandwich up to this width and n·k elements.
+# The densified matrix serves the sandwich up to this width and n·k
+# elements; past them (and the pair plan's budgets) row panels of at most
+# DENSE_SANDWICH_MAX_ELEMENTS elements do.
 DENSE_SANDWICH_MAX_COLS = 4096
 DENSE_SANDWICH_MAX_ELEMENTS = 1 << 28
 # The pair plan serves the sandwich up to Σ_r nnz_r² pairs and k² segments.
@@ -292,7 +297,7 @@ class SparseMatrix(MatrixBase):
         """``X[rows, cols].T @ diag(d[rows]) @ X[rows, cols]``.
 
         The pair plan first, then the densified matrix; past both budgets
-        (a ``sparse_wide``-like shape) it raises ``NotImplementedError``.
+        (a ``sparse_wide``-like shape) densified row panels.
         """
         d_t = to_tensor(d, device=self._device)
         check_sandwich_compatible(self, d_t)
@@ -314,12 +319,29 @@ class SparseMatrix(MatrixBase):
         dense = self._dense_mirror()
         if dense is not None:
             return result_like(d, dense_ops.sandwich_restricted(dense, dm, None, cols_np))
-        raise NotImplementedError(
-            f"the sandwich of a {self.shape[0]} x {self.shape[1]} SparseMatrix with "
-            f"{sparse_ops.pair_count(self.array_csr)} within-row pairs is past the pair "
-            "plan's and the densified matrix's budgets; a Hopper sandwich for this "
-            "shape is ROADMAP A4"
-        )
+        return result_like(d, self._panel_sandwich(dm, cols_np))
+
+    def _panel_sandwich(self, dm: torch.Tensor, cols_np: Optional[np.ndarray]) -> torch.Tensor:
+        """``X[:, cols].T diag(dm) X[:, cols]`` by row panels of the CSR layout.
+
+        ``cols`` restricts the columns on the host before densifying; each
+        panel (at most ``DENSE_SANDWICH_MAX_ELEMENTS`` elements, at least one
+        row) is densified on the device and its sandwich added in order into
+        one (k, k) result.
+        """
+        if cols_np is None:
+            csr = self.array_csr
+            data, plan = self._csr_parts()
+        else:
+            csr = self.array_csr[:, cols_np]
+            data, plan = sparse_ops.compressed_layout(csr, len(cols_np), self._device)
+        width = csr.shape[1]
+        S = torch.zeros((width, width), dtype=data.dtype, device=self._device)
+        for start, stop, panel in sparse_ops.csr_row_panels(
+            data, plan, csr.indptr, width, DENSE_SANDWICH_MAX_ELEMENTS
+        ):
+            dense_ops.sandwich(panel, dm[start:stop].contiguous(), out=S)
+        return S
 
     def _cross_sandwich(
         self,

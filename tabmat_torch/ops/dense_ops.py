@@ -2,10 +2,12 @@
 
 Port of ``tabmat_tpu/ops/dense_ops.py``:
 
-- ``sandwich`` goes through :mod:`.sandwich_kernel`: the hand-written CUDA
-  kernel for a CUDA tensor, its plain version for a CPU tensor.  This one
-  route replaces the reference's v3/v4/v5 plane kernels, Ozaki slices and
-  the f32 Pallas kernel, which exist only because the TPU lacks native f64.
+- ``sandwich`` goes through :mod:`.sandwich_kernel`: for a CUDA tensor the
+  hand-written CUDA kernel its width dispatch names (narrow k ≤ 32, the
+  FFMA tile, the FP64 tensor cores for f64 k > 128), for a CPU tensor the
+  plain version.  This one route replaces the reference's v3/v4/v5 plane
+  kernels, slice-pair kernels and the f32 Pallas kernel, which exist only
+  because the TPU lacks native f64.
 - Row restriction multiplies a 0/1 mask into ``d``/``vec`` (exact: every op
   is a linear reduction over rows); column restriction is an
   ``index_select`` on the small column axis.  The result is the exact
@@ -23,9 +25,10 @@ import torch
 from . import sandwich_kernel
 
 
-def sandwich(X: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
-    """Unrestricted sandwich ``X.T @ diag(d) @ X`` → (k, k)."""
-    return sandwich_kernel.sandwich(X, d)
+def sandwich(X: torch.Tensor, d: torch.Tensor, out=None) -> torch.Tensor:
+    """Unrestricted sandwich ``X.T @ diag(d) @ X`` → (k, k); with ``out`` a
+    (k, k) tensor the product is added into it."""
+    return sandwich_kernel.sandwich(X, d, out)
 
 
 def sandwich_restricted(

@@ -1,34 +1,52 @@
-"""The hand-written CUDA sandwich ``S = Xᵀ diag(d) X``, its range prepass,
-and their plain versions.
+"""The hand-written CUDA sandwiches ``S = Xᵀ diag(d) X``, their width
+dispatch, the range prepass, and their plain versions.
 
-Kernels: ``tabmat_torch/csrc/sandwich.cu``.
+Kernels, one wrapper each, chosen by :func:`route` on the width k:
 
-- ``sandwich``: one template instantiated for ``double`` and ``float``.  It
-  replaces ``tabmat_tpu/ops/pallas_sandwich_v4.py:_v4_kernel`` (exact f64
-  through int8 anti-diagonal plane dots) and
-  ``tabmat_tpu/ops/pallas_kernels.py:_sandwich_kernel`` (full f32 at
-  ``Precision.HIGHEST``).  Hopper has native FP64, so ``sandwich<double>``
-  computes the function directly, without planes; ``sandwich<float>`` uses
-  plain FFMA, never TF32.
+- ``sandwich_narrow<T>`` (``csrc/sandwich_narrow.cu``, k ≤ 32, f64 and
+  f32): replaces ``tabmat_tpu/ops/pallas_sandwich_v3.py:_v3p_kernel`` (k
+  narrow, G = ⌊100/k⌋ row groups packed into the lanes) and the packed mode
+  of ``pallas_sandwich_v4.py:_v4_kernel`` and
+  ``pallas_sandwich_v5.py:_v5_kernel`` (G = ⌊128/k⌋), in f32
+  ``pallas_kernels.py:_sandwich_kernel`` at these widths.  Bound by the
+  bytes of X (1 FLOP/byte at k = 10): a block owns every upper-triangle
+  entry in 4 × 4 register micro-tiles and reads X once, coalesced; the row
+  splits fill one wave.
+- ``sandwich<T>`` (``csrc/sandwich.cu``, 33 ≤ k ≤ 128 in f64, k > 32 in
+  f32): replaces ``pallas_sandwich_v4.py:_v4_kernel`` (exact f64 through
+  int8 anti-diagonal plane dots), the unpacked ``_v5_kernel`` and
+  ``pallas_sandwich_v3.py:_v3_kernel`` (k ≤ 100), and in f32
+  ``pallas_kernels.py:_sandwich_kernel`` (``Precision.HIGHEST``).  A 64 × 64
+  FFMA tile per upper tile pair, X read once per column tile (once in all
+  for k ≤ 64): at 1M × 50 f64 about 6 FLOP/byte, just under the FP64 FFMA
+  ridge of about 10 (34 TFLOP/s over 3.35 TB/s, NVIDIA's data sheet).
+- ``sandwich_mma<double>`` (``csrc/sandwich_mma.cu``, f64 k > 128):
+  replaces ``tabmat_tpu/ops/pallas_pairs.py:_pairs_kernel`` and
+  ``:_sliced_pairs_kernel`` (the slice-pair contractions whose f64
+  combination is ``AᵀB`` with A = d·X, the TPU default for 128 < k ≤ 160),
+  and v3 / v5 beyond one lane tile.  Balanced at 400k × 160 (0.153 ms of
+  bytes, 0.154 ms of operations at 67 TFLOP/s), bound by operations at
+  k = 10⁴: FP64 tensor cores through ``mma.sync.m8n8k4``, 64 × 64 tiles of
+  four 32 × 32 warp tiles.
+
+Hopper has native FP64, so every f64 kernel computes the function
+directly, without the TPU's planes; f32 uses FFMA, never TF32.  Each
+kernel sums its per-block partials in a second pass in a fixed order: no
+atomics, so results repeat bit for bit and S is exactly symmetric.  With
+``out=`` the second pass adds S into ``out``, so row panels of one product
+sum in order in one (k, k) buffer.  128 is where the JAX package leaves v4
+for the pair kernels (``pallas_sandwich_v4.py:71``).
+
 - ``column_absmax``: ``max_i |X[i, j]| · |d[i]|`` per column, replacing the
   v4 prepass ``pallas_sandwich_v4.py:_max_kernel``.  The TPU used these
   maxima to pick the plane exponents that keep the scaled values in range.
   The port's narrow format is the float32 Hessian of the default IRLS step,
   and ``glm.irls_step`` uses the maxima to pick the power-of-two weight scale
-  that keeps that Hessian in range.
+  that keeps that Hessian in range.  It reads the f32 X once.
 
-Bound at 1M × 50 f64: about 2.5 GFLOP (upper triangle) against 400 MB of
-X, roughly 6 FLOP/byte, just under the H100's FP64 ridge of about
-10 FLOP/byte (34 TFLOP/s without tensor cores over 3.35 TB/s, NVIDIA's data
-sheet).  So the sandwich reads X once per 64-column tile (once in all for
-k ≤ 64) with d folded into the staged rows, splits the rows so that the grid
-fills one wave of the blocks an SM holds at once (the occupancy the CUDA
-runtime reports), and sums the per-block partials in a second pass in a
-fixed order: no atomics, so results repeat exactly and S is exactly
-symmetric.  The prepass reads the f32 X once.
-
-The wrappers take the plain version only for a tensor on the CPU; for a
-CUDA tensor they launch the kernel or raise.
+The plain version of all three sandwiches is :func:`sandwich_plain`.  The
+wrappers take it only for a tensor on the CPU; for a CUDA tensor they launch
+the kernel or raise.
 """
 
 import ctypes
@@ -36,35 +54,49 @@ import ctypes
 import torch
 
 # Launch counts by kernel: each rises by one where that kernel is launched,
-# nowhere else.  ``sandwich_launches`` is the sum of the two sandwiches.
-launches = {"sandwich<double>": 0, "sandwich<float>": 0, "column_absmax": 0}
+# nowhere else.  ``sandwich_launches`` is the sum over the sandwiches.
+launches = {
+    "sandwich<double>": 0, "sandwich<float>": 0,
+    "sandwich_narrow<double>": 0, "sandwich_narrow<float>": 0,
+    "sandwich_mma<double>": 0,
+    "column_absmax": 0,
+}
 
-_SANDWICH_NAMES = {torch.float64: "sandwich<double>", torch.float32: "sandwich<float>"}
-
-# Must match csrc/sandwich.cu.
-TILE = 64
+# Must match csrc/sandwich.cu, csrc/sandwich_narrow.cu and csrc/sandwich_mma.cu.
+TILE = 64  # the output tile of sandwich<T> and sandwich_mma<double>
 ROWS = 32
+NARROW_MAX_K = 32
+WIDE_MIN_K = 129  # f64 widths for the tensor cores (pallas_sandwich_v4.py:71)
 AM_COLS = 32
 AM_ROWS = 8
 MAX_SPLITS = 65535  # gridDim.y limit
 
-_ARGTYPES = [
+_SANDWICH_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+    ctypes.c_int, ctypes.c_void_p,
+]
+_ABSMAX_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
     ctypes.c_void_p,
 ]
-_SYMBOLS = {
-    "sandwich<double>": "tabmat_sandwich_f64",
-    "sandwich<float>": "tabmat_sandwich_f32",
-    "column_absmax": "tabmat_column_absmax",
+# kernel -> (source in csrc/, C function)
+_KERNELS = {
+    "sandwich<double>": ("sandwich", "tabmat_sandwich_f64"),
+    "sandwich<float>": ("sandwich", "tabmat_sandwich_f32"),
+    "sandwich_narrow<double>": ("sandwich_narrow", "tabmat_sandwich_narrow_f64"),
+    "sandwich_narrow<float>": ("sandwich_narrow", "tabmat_sandwich_narrow_f32"),
+    "sandwich_mma<double>": ("sandwich_mma", "tabmat_sandwich_mma_f64"),
+    "column_absmax": ("sandwich", "tabmat_column_absmax"),
 }
-_lib = None
-_blocks_per_sm: dict = {}  # dtype -> resident sandwich blocks per SM
+_libs: dict = {}
+_blocks_per_sm: dict = {}  # (source, dtype) -> resident first-pass blocks per SM
 
 
 def __getattr__(name):
     if name == "sandwich_launches":
-        return launches["sandwich<double>"] + launches["sandwich<float>"]
+        return sum(c for key, c in launches.items() if key.startswith("sandwich"))
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
@@ -72,6 +104,25 @@ def reset_launch_counts() -> None:
     """Set every launch count to 0."""
     for name in launches:
         launches[name] = 0
+
+
+def _instance(kernel: str, dtype: torch.dtype) -> str:
+    return f"{kernel}<{'double' if dtype == torch.float64 else 'float'}>"
+
+
+def route(k: int, dtype: torch.dtype) -> str:
+    """The sandwich kernel for width ``k`` and dtype (float64 or float32).
+
+    k ≤ 32 → ``sandwich_narrow<T>``; float64 and k > 128 →
+    ``sandwich_mma<double>``; otherwise ``sandwich<T>``.
+    """
+    if dtype not in (torch.float64, torch.float32):
+        raise TypeError(f"the sandwich takes float64 or float32, got {dtype}")
+    if k <= NARROW_MAX_K:
+        return _instance("sandwich_narrow", dtype)
+    if dtype == torch.float64 and k >= WIDE_MIN_K:
+        return "sandwich_mma<double>"
+    return _instance("sandwich", dtype)
 
 
 def sandwich_plain(X: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
@@ -96,17 +147,26 @@ def _split_rows(n: int, splits: int, multiple: int):
 
 
 def launch_plan(n: int, k: int, n_sm: int, blocks_per_sm: int):
-    """Row split of the sandwich's first pass: ``(splits, rows_per_split)``.
+    """Row split of the first pass of ``sandwich<T>`` and
+    ``sandwich_mma<double>``: ``(splits, rows_per_split)``.
 
-    The grid fills one wave of ``n_sm * blocks_per_sm`` resident blocks,
-    never one block more: every block does the same work, so one extra
-    block on one SM costs a whole block's time, and at the main path's
-    k = 50 more waves were slower (PERF.md).  Each split is a whole number
-    of ``ROWS``-row stages.
+    The grid of 64 × 64 upper tile pairs × splits fills one wave of
+    ``n_sm * blocks_per_sm`` resident blocks, never one block more: every
+    block does the same work, so one extra block on one SM costs a whole
+    block's time, and at the main path's k = 50 more waves were slower
+    (PERF.md).  Once the tile pairs alone fill the wave there is one split,
+    so the (splits, k, k) scratch stays near k².  Each split is a whole
+    number of ``ROWS``-row stages.
     """
     nt = -(-k // TILE)
     pairs = nt * (nt + 1) // 2
     return _split_rows(n, n_sm * blocks_per_sm // pairs, ROWS)
+
+
+def narrow_plan(n: int, n_sm: int, blocks_per_sm: int):
+    """Row split of ``sandwich_narrow<T>``: one block owns every entry, so
+    the splits alone fill one wave of resident blocks."""
+    return _split_rows(n, n_sm * blocks_per_sm, ROWS)
 
 
 def absmax_plan(n: int, k: int, n_sm: int):
@@ -139,32 +199,97 @@ def _check(X, d, x_dtypes, d_dtype=None) -> None:
         raise ValueError("the CUDA kernels need a contiguous (row-major) X")
 
 
-def sandwich(X: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
-    """``Xᵀ diag(d) X`` → (k, k) in X's dtype (float64 or float32), on X's device.
+def _check_out(out, X) -> None:
+    k = X.shape[1]
+    if not torch.is_tensor(out):
+        raise TypeError("out must be a torch tensor")
+    if out.shape != (k, k) or out.dtype != X.dtype or out.device != X.device:
+        raise ValueError(
+            f"out must be ({k}, {k}) {X.dtype} on {X.device}, got {tuple(out.shape)} "
+            f"{out.dtype} on {out.device}"
+        )
+    if not out.is_contiguous():
+        raise ValueError("out must be contiguous")
 
-    CPU tensors take :func:`sandwich_plain`.  CUDA tensors launch the
-    kernel; X must be contiguous, d is made contiguous here.
-    """
-    _check(X, d, tuple(_SANDWICH_NAMES))
+
+def _plain_into(X, d, out):
+    S = sandwich_plain(X, d)
+    return S if out is None else out.add_(S)
+
+
+def _run_sandwich(name: str, X, d, out):
+    """Check the operands, then the plain version on the CPU or ``name``'s
+    kernel on the card; with ``out`` the product is added into it."""
+    _check(X, d, (torch.float64,) if name.endswith("<double>") else (torch.float32,))
+    if out is not None:
+        _check_out(out, X)
     if X.device.type == "cpu":
-        return sandwich_plain(X, d)
+        return _plain_into(X, d, out)
     n, k = X.shape
     if n == 0 or k == 0:
-        return torch.zeros((k, k), dtype=X.dtype, device=X.device)
-    name = _SANDWICH_NAMES[X.dtype]
+        return torch.zeros((k, k), dtype=X.dtype, device=X.device) if out is None else out
+    source = _KERNELS[name][0]
     with torch.cuda.device(X.device):
-        lib = _library()
-        if X.dtype not in _blocks_per_sm:
+        lib = _library(source)
+        key = (source, X.dtype)
+        if key not in _blocks_per_sm:
             blocks = ctypes.c_int(0)
-            _raise_on(lib, lib.tabmat_sandwich_blocks_per_sm(
-                int(X.dtype == torch.float64), ctypes.byref(blocks)))
-            _blocks_per_sm[X.dtype] = max(1, blocks.value)
+            _raise_on(lib, getattr(lib, f"tabmat_{source}_blocks_per_sm")(
+                int(X.dtype == torch.float64), ctypes.byref(blocks)), source)
+            _blocks_per_sm[key] = max(1, blocks.value)
         n_sm = torch.cuda.get_device_properties(X.device).multi_processor_count
-        splits, rows_per_split = launch_plan(n, k, n_sm, _blocks_per_sm[X.dtype])
-        out = torch.empty((k, k), dtype=X.dtype, device=X.device)
+        if source == "sandwich_narrow":
+            splits, rows_per_split = narrow_plan(n, n_sm, _blocks_per_sm[key])
+        else:
+            splits, rows_per_split = launch_plan(n, k, n_sm, _blocks_per_sm[key])
+        accumulate = out is not None
+        if out is None:
+            out = torch.empty((k, k), dtype=X.dtype, device=X.device)
         partial = torch.empty((splits, k, k), dtype=X.dtype, device=X.device)
-        _launch(lib, name, X, d.contiguous(), out, partial, n, k, splits, rows_per_split)
+        _launch(lib, name, X, d.contiguous(), out, partial, n, k, splits, rows_per_split,
+                int(accumulate))
     return out
+
+
+def sandwich(X: torch.Tensor, d: torch.Tensor, out=None) -> torch.Tensor:
+    """``Xᵀ diag(d) X`` → (k, k) in X's dtype (float64 or float32), on X's device.
+
+    The kernel is the one :func:`route` names for X's width and dtype.  CPU
+    tensors take :func:`sandwich_plain`.  CUDA tensors launch the kernel; X
+    must be contiguous, d is made contiguous here.  With ``out`` (a
+    contiguous (k, k) tensor of X's dtype and device) the product is added
+    into ``out``, which is returned.
+    """
+    _check(X, d, (torch.float64, torch.float32))
+    return _run_sandwich(route(X.shape[1], X.dtype), X, d, out)
+
+
+def sandwich_tiled(X: torch.Tensor, d: torch.Tensor, out=None) -> torch.Tensor:
+    """:func:`sandwich` through ``sandwich<T>`` (64 × 64 FFMA tiles), any k."""
+    _check(X, d, (torch.float64, torch.float32))
+    return _run_sandwich(_instance("sandwich", X.dtype), X, d, out)
+
+
+def sandwich_narrow(X: torch.Tensor, d: torch.Tensor, out=None) -> torch.Tensor:
+    """:func:`sandwich` through ``sandwich_narrow<T>``; k ≤ 32."""
+    _check(X, d, (torch.float64, torch.float32))
+    if X.shape[1] > NARROW_MAX_K:
+        raise ValueError(f"sandwich_narrow takes k <= {NARROW_MAX_K}, got {X.shape[1]}")
+    return _run_sandwich(_instance("sandwich_narrow", X.dtype), X, d, out)
+
+
+def sandwich_mma(X: torch.Tensor, d: torch.Tensor, out=None) -> torch.Tensor:
+    """:func:`sandwich` through ``sandwich_mma<double>`` (FP64 tensor
+    cores), any k; float64 only."""
+    return _run_sandwich("sandwich_mma<double>", X, d, out)
+
+
+# the wrapper of each sandwich kernel, for callers that name the kernel
+KERNEL_WRAPPERS = {
+    "sandwich<double>": sandwich_tiled, "sandwich<float>": sandwich_tiled,
+    "sandwich_narrow<double>": sandwich_narrow, "sandwich_narrow<float>": sandwich_narrow,
+    "sandwich_mma<double>": sandwich_mma,
+}
 
 
 def column_absmax(X: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
@@ -180,7 +305,7 @@ def column_absmax(X: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     if n == 0 or k == 0:
         return torch.zeros(k, dtype=torch.float64, device=X.device)
     with torch.cuda.device(X.device):
-        lib = _library()
+        lib = _library("sandwich")
         n_sm = torch.cuda.get_device_properties(X.device).multi_processor_count
         splits, rows_per_split = absmax_plan(n, k, n_sm)
         out = torch.empty(k, dtype=torch.float64, device=X.device)
@@ -190,29 +315,32 @@ def column_absmax(X: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _library():
-    """The built ``sandwich.cu`` with its C functions typed (built at first use)."""
-    global _lib
-    if _lib is None:
+def _library(source: str):
+    """The built ``csrc/<source>.cu`` with its C functions typed (built at first use)."""
+    if source not in _libs:
         from .. import _build
 
-        signatures = {symbol: _ARGTYPES for symbol in _SYMBOLS.values()}
-        signatures["tabmat_sandwich_blocks_per_sm"] = [ctypes.c_int, ctypes.c_void_p]
-        _lib = _build.bind("sandwich", signatures)
-    return _lib
+        signatures = {
+            symbol: (_ABSMAX_ARGTYPES if name == "column_absmax" else _SANDWICH_ARGTYPES)
+            for name, (src, symbol) in _KERNELS.items() if src == source
+        }
+        signatures[f"tabmat_{source}_blocks_per_sm"] = [ctypes.c_int, ctypes.c_void_p]
+        _libs[source] = _build.bind(source, signatures)
+    return _libs[source]
 
 
-def _raise_on(lib, err: int) -> None:
+def _raise_on(lib, err: int, source: str) -> None:
     from .. import _build
 
-    _build.raise_on(lib, err, "sandwich.cu kernel")
+    _build.raise_on(lib, err, f"{source}.cu kernel")
 
 
-def _launch(lib, name, X, d, out, partial, n, k, splits, rows_per_split) -> None:
+def _launch(lib, name, X, d, out, partial, n, k, splits, rows_per_split, *flags) -> None:
+    source, symbol = _KERNELS[name]
     stream = torch.cuda.current_stream(X.device).cuda_stream
-    err = getattr(lib, _SYMBOLS[name])(
+    err = getattr(lib, symbol)(
         X.data_ptr(), d.data_ptr(), out.data_ptr(), partial.data_ptr(),
-        n, k, splits, rows_per_split, stream,
+        n, k, splits, rows_per_split, *flags, stream,
     )
-    _raise_on(lib, err)
+    _raise_on(lib, err, source)
     launches[name] += 1

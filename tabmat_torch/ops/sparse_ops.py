@@ -14,7 +14,9 @@ a CSC matrix one with a segment per column, so every sparse reduction is
 - ``csc_cross_dense``: ``X.T diag(d) B`` for a dense ``B``;
 - ``pair_sandwich``: ``X.T diag(w) X`` over the plan of within-row pairs;
 - ``code_column_cross``: ``C.T diag(w) X`` for a one-hot ``C``, over the
-  plan of (code, column) keys.
+  plan of (code, column) keys;
+- ``csr_row_panels``: row panels of a CSR layout densified on the device,
+  for the sandwich past the pair plan's and the densified matrix's budgets.
 
 The reference's ``_pg`` (lane-shuffle gather), ``_window`` (windowed take)
 and plain variants formed each reduction as a cumsum over all nonzeros,
@@ -114,6 +116,29 @@ def pair_sandwich(prod: torch.Tensor, plan: SegmentPlan, k: int, w: torch.Tensor
     in one launch, mirrored."""
     upper = spmv(w, plan, prod).reshape(k, k)
     return upper + torch.triu(upper, 1).T
+
+
+def csr_row_panels(data: torch.Tensor, plan: SegmentPlan, indptr, width: int,
+                   max_elements: int):
+    """Yield ``(start, stop, panel)``: rows ``[start, stop)`` of a CSR layout
+    as a dense (stop - start, width) tensor on the layout's device.
+
+    ``plan`` is the layout of :func:`compressed_layout` (``perm`` the column
+    indices, ``bounds`` the indptr) and ``indptr`` its host copy.  Each panel
+    holds at most ``max_elements`` elements and at least one row.  Stored
+    duplicates add up.
+    """
+    n = len(indptr) - 1
+    step = max(1, max_elements // max(width, 1))
+    for start in range(0, n, step):
+        stop = min(start + step, n)
+        lo, hi = int(indptr[start]), int(indptr[stop])
+        counts = (plan.bounds[start + 1 : stop + 1] - plan.bounds[start:stop]).long()
+        rows = torch.repeat_interleave(
+            torch.arange(stop - start, device=data.device), counts, output_size=hi - lo)
+        panel = torch.zeros((stop - start, width), dtype=data.dtype, device=data.device)
+        panel.index_put_((rows, plan.perm[lo:hi].long()), data[lo:hi], accumulate=True)
+        yield start, stop, panel
 
 
 def code_column_plan(codes: np.ndarray, n_codes: int, n_rows: int, csc, device,

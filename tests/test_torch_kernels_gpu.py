@@ -1,6 +1,6 @@
-"""The CUDA kernels (sandwich, range prepass, gather, segment sum, sparse
-segment product) against their plain versions, and the default device, on
-the card.
+"""The CUDA kernels (the three sandwiches and their width dispatch, range
+prepass, gather, segment sum, sparse segment product) against their plain
+versions, and the default device, on the card.
 
 Marked ``gpu``: here, without a card, each test skips with its reason.  On
 the card:
@@ -53,6 +53,78 @@ def test_kernel_matches_plain(cuda, k, dtype):
     assert float((S - P).abs().max() / P.abs().max()) <= TOL[dtype]
 
 
+def _held_against_plain(name, wrapper, X, d):
+    """Two launches of ``wrapper``: bit-identical, exactly symmetric, within
+    the dtype's limit of the plain version; then one that adds into ``out``."""
+    before = sk.launches[name]
+    S, again = wrapper(X, d), wrapper(X, d)
+    P = sk.sandwich_plain(X, d)
+    torch.cuda.synchronize()
+    assert sk.launches[name] == before + 2
+    assert torch.equal(S, again) and torch.equal(S, S.T)
+    assert float((S - P).abs().max() / P.abs().max()) <= TOL[X.dtype]
+    out = torch.ones_like(S)
+    assert wrapper(X, d, out=out) is out
+    assert sk.launches[name] == before + 3
+    assert torch.equal(out, S + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("k", [1, 2, 5, 10, 31, 32])
+def test_narrow_kernel_matches_plain(cuda, k, dtype):
+    X, d = _inputs(100_003, k, dtype, cuda, seed=k)
+    suffix = "double" if dtype == torch.float64 else "float"
+    _held_against_plain(f"sandwich_narrow<{suffix}>", sk.sandwich_narrow, X, d)
+
+
+@pytest.mark.parametrize("k", [129, 160, 200, 1000])
+def test_mma_kernel_matches_plain(cuda, k):
+    X, d = _inputs(100_003 if k < 1000 else 20_011, k, torch.float64, cuda, seed=k)
+    _held_against_plain("sandwich_mma<double>", sk.sandwich_mma, X, d)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("k", [1, 32, 33, 128, 129])
+def test_dispatch_launches_the_routed_kernel(cuda, k, dtype):
+    X, d = _inputs(5_003, k, dtype, cuda, seed=k)
+    name = sk.route(k, dtype)
+    before = dict(sk.launches)
+    sk.sandwich(X, d)
+    assert [key for key in sk.launches if sk.launches[key] != before[key]] == [name]
+
+
+def test_mma_kernel_rejects_float32(cuda):
+    X, d = _inputs(100, 130, torch.float32, cuda, seed=1)
+    with pytest.raises(TypeError):
+        sk.sandwich_mma(X, d)
+
+
+def test_sparse_sandwich_past_both_budgets_on_card(cuda, monkeypatch):
+    """Row panels densified on the card and summed through the tensor-core
+    kernel, against scipy."""
+    from scipy import sparse as sps
+
+    from tabmat_torch.models import sparse as port_sparse
+
+    monkeypatch.setattr(port_sparse, "PAIR_SANDWICH_MAX_PAIRS", 0)
+    monkeypatch.setattr(port_sparse, "DENSE_SANDWICH_MAX_ELEMENTS", 3_000 * 700)
+    rng = np.random.default_rng(6)
+    Xs = sps.random(10_007, 700, density=0.02, format="csc", random_state=rng)
+    d = rng.random(10_007) - 0.3
+    m = tt.SparseMatrix(Xs)
+    before = sk.launches["sandwich_mma<double>"]
+    S = m.sandwich(d)
+    assert sk.launches["sandwich_mma<double>"] == before + 4  # four panels
+    ref = (Xs.T @ sps.csr_matrix(Xs.multiply(d[:, None]))).toarray()
+    assert np.abs(S - ref).max() / np.abs(ref).max() <= 1e-13
+    np.testing.assert_array_equal(S, S.T)
+    rows, cols = np.arange(0, 10_007, 2), np.arange(0, 700, 7)
+    sub = Xs.tocsr()[rows][:, cols]
+    sub_ref = (sub.T @ sps.csr_matrix(sub.multiply(d[rows, None]))).toarray()
+    got = m.sandwich(d, rows=rows, cols=cols)  # 100 columns: the tiled kernel
+    assert np.abs(got - sub_ref).max() / np.abs(sub_ref).max() <= 1e-13
+
+
 @pytest.mark.parametrize("k", EDGE_KS)
 def test_column_absmax_matches_plain(cuda, k):
     X, d = _inputs(100_003, k, torch.float32, cuda, seed=k)
@@ -94,8 +166,11 @@ def test_dense_matrix_on_card(cuda):
     before = dict(sk.launches)
     beta, _ = tt.fit_glm(dm, X @ rng.standard_normal(9), max_iter=2, tol=0.0)
     assert beta.device.type == "cuda"
-    # the default float32 inner step: the prepass, then the f32 sandwich
-    assert sk.launches["sandwich<float>"] >= before["sandwich<float>"] + 2
+    # the default float32 inner step: the prepass, then the f32 sandwich of
+    # the width dispatch (k = 9: the narrow kernel)
+    name = sk.route(9, torch.float32)
+    assert name == "sandwich_narrow<float>"
+    assert sk.launches[name] >= before[name] + 2
     assert sk.launches["column_absmax"] >= before["column_absmax"] + 2
 
 

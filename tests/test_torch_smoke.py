@@ -17,6 +17,8 @@ import numpy as np
 import pytest
 import torch
 
+import tabmat_tpu as tm
+
 from tabmat_torch.ops.sandwich_kernel import sandwich_plain
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -53,8 +55,28 @@ def test_main_path_phase_on_cpu():
 
 
 def test_kernel_phase_on_cpu():
-    max_abs = _chip_smoke().phase_kernels(torch.device("cpu"), 500, 5, 97, (1, 7))
-    assert max_abs == {"sandwich<double>": 0.0, "sandwich<float>": 0.0, "column_absmax": 0.0}
+    smoke = _chip_smoke()
+    # each sandwich kernel at a cut-down full shape and its first two widths
+    cases = {name: ((500, 12 if "narrow" in name else 40), widths[:2])
+             for name, (_, widths) in smoke.SANDWICH_CASES.items()}
+    max_abs = smoke.phase_kernels(torch.device("cpu"), cases, 97, [(500, 5), (97, 1)])
+    assert max_abs == {name: 0.0 for name in (
+        "sandwich<double>", "sandwich<float>", "sandwich_narrow<double>",
+        "sandwich_narrow<float>", "sandwich_mma<double>", "column_absmax")}
+    # the kernels line lists twelve instantiations, each timed in phase 8
+    assert len(smoke.KERNELS) == 12
+    assert set(smoke.SANDWICH_TIMES) | {"column_absmax"} <= set(smoke.KERNELS)
+
+
+def test_dense_width_paths_on_cpu():
+    """Paths (a) and (b), the narrow and wide dense designs, at cut-down rows."""
+    smoke = _chip_smoke()
+    for k in (smoke.NARROW_K, smoke.WIDE_K):
+        report = smoke.phase_main_path(torch.device("cpu"), n=4000, k=k, fit_steps=3,
+                                       label=f"[4] k={k}")
+        assert report["fit_launches"] == 0
+        for beta in report["betas"].values():
+            assert beta.shape == (k,) and np.all(np.isfinite(beta))
 
 
 def test_numpy_irls_converges_to_least_squares():
@@ -128,10 +150,13 @@ def test_f32_limit_rejects_tf32():
     assert chip_smoke._relerr(chip_smoke.tf32_round(torch.tensor(X)).numpy(), tf32_round(X)) == 0
 
 
-def test_sparse_phases_on_cpu():
+def test_sparse_phases_on_cpu(monkeypatch):
     """The sparse phases at a small size: the sparse product against its
     plain version (equal on the CPU), the standalone SparseMatrix against
-    scipy, ``sparse_wide``'s sandwich refused, and the sparse main path."""
+    scipy, ``sparse_wide``'s sandwich by row panels (its budgets cut down to
+    the cut-down shape: three panels), and the sparse main path."""
+    from tabmat_torch.models import sparse as port_sparse
+
     smoke = _chip_smoke()
     cpu = torch.device("cpu")
     designs = smoke.sparse_designs({"sparse": (4000, 100), "sparse_narrow": (30_000, 3),
@@ -149,3 +174,18 @@ def test_sparse_phases_on_cpu():
         assert beta.shape == (5 + 100 + 100,) and np.all(np.isfinite(beta))
     plan, a, values, scale = cases[-1][1:]
     assert smoke.spmv_bound(plan, a, values, scale)[1] == "bytes"
+    wide = smoke.sparse_designs({"sparse_wide": (600, 1000)}, density=0.05)["sparse_wide"]
+    monkeypatch.setattr(port_sparse, "PAIR_SANDWICH_MAX_PAIRS", 0)
+    monkeypatch.setattr(port_sparse, "DENSE_SANDWICH_MAX_COLS", 500)
+    monkeypatch.setattr(port_sparse, "DENSE_SANDWICH_MAX_ELEMENTS", 250 * 1000)
+    report = smoke.phase_sparse_wide(wide, device=cpu, slab=50)
+    # the row panels against the reference's sandwich; the reference
+    # differences a cumsum over its 1.5M within-row pairs here and is off
+    # the exact product by the prefix's ulp (ROADMAP C), so 1e-10, as
+    # tests/test_torch_sparse.py holds it at the reference's shapes
+    ref = tm.SparseMatrix(wide)
+    d = report["d"].numpy()
+    rows, cols = np.arange(0, 600, 3), np.arange(0, 1000, 4)
+    for kw in ({}, {"rows": rows}, {"cols": cols}, {"rows": rows, "cols": cols}):
+        np.testing.assert_allclose(report["matrix"].sandwich(d, **kw), ref.sandwich(d, **kw),
+                                   rtol=0, atol=1e-10)

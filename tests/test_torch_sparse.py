@@ -146,7 +146,8 @@ def test_float32_matrix():
 
 def test_sandwich_routes(monkeypatch):
     """The pair plan first; past its budget the densified matrix; past both
-    the port raises (no host scipy route) and names ROADMAP A4."""
+    row panels of the CSR layout, densified on the device and added in
+    order (the reference takes host scipy there)."""
     ref, port = _pair()
     rng = np.random.default_rng(4)
     d = rng.random(N) - 0.3
@@ -165,12 +166,21 @@ def test_sandwich_routes(monkeypatch):
            ref.sandwich(d, rows=np.arange(0, N, 2), cols=cols))
     assert mirror._pair == () and mirror._dense is not None
 
-    monkeypatch.setattr(port_sparse, "DENSE_SANDWICH_MAX_ELEMENTS", 0)
-    neither = tt.SparseMatrix(port.array_csc, device="cpu")
-    with pytest.raises(NotImplementedError, match="A4"):
-        neither.sandwich(d)
-    # matvec and transpose_matvec still run past the sandwich budgets
-    _close(neither.transpose_matvec(d), ref.transpose_matvec(d))
+    # past both: panels of one row (a budget of 0), then of 300 rows
+    for budget in (0, 300 * K):
+        monkeypatch.setattr(port_sparse, "DENSE_SANDWICH_MAX_ELEMENTS", budget)
+        neither = tt.SparseMatrix(port.array_csc, device="cpu")
+        _close(neither.sandwich(d), want)
+        rows = np.arange(0, N, 2)
+        for kw in ({"rows": rows}, {"cols": cols}, {"rows": rows, "cols": cols},
+                   {"cols": np.array([3, 3, 0])}):
+            _close(neither.sandwich(d, **kw), ref.sandwich(d, **kw))
+        got = neither.sandwich(torch.tensor(d))
+        assert torch.is_tensor(got) and got.dtype == torch.float64
+        _close(got, want)
+        assert neither._pair == () and neither._dense is None
+        # matvec and transpose_matvec still run past the sandwich budgets
+        _close(neither.transpose_matvec(d), ref.transpose_matvec(d))
 
 
 @pytest.mark.parametrize("shape", [(30_000, 3, 0.01), (4_000, 100, 0.01), (500, 300, 0.05)],

@@ -3,11 +3,16 @@
 
 Run from the repository root on a machine with a card:
 
-    python3 tools/profile_irls_step.py [--design dense|mixed|sparse] [--n 1000000]
-        [--k 50] [--levels 1000] [--repeats 3]
+    python3 tools/profile_irls_step.py
+        [--design dense|dense_narrow|dense_wide|mixed|sparse] [--n N] [--k K]
+        [--levels 1000] [--repeats 3]
 
 ``--design dense`` (the default) steps a gaussian GLM on a ``DeviceDesign``
-over an (n, k) float64 ``DenseMatrix``.  ``--design mixed`` steps a poisson
+over an (n, k) float64 ``DenseMatrix``, 1,000,000 x 50 by default.
+``--design dense_narrow`` is the same at the reference bench's dense design,
+4,000,000 x 10 (``tabmat_tpu/bench/generate.py:70``; the narrow sandwich
+kernel), and ``--design dense_wide`` at 400,000 x 160 (the FP64 tensor-core
+kernel in f64 steps); ``--n`` and ``--k`` override those sizes.  ``--design mixed`` steps a poisson
 GLM on the mixed design of ``bench.py:360-371``: a ``SplitMatrix`` of an
 (n, 5) ``DenseMatrix`` and two categoricals of ``--levels`` levels each
 (1,000,000 x 2005 by default).  ``--design sparse`` adds ``bench.py:282``'s
@@ -50,6 +55,9 @@ from tabmat_torch.glm import irls_step  # noqa: E402
 from tabmat_torch.parallel.design import DeviceDesign  # noqa: E402
 
 N_CG = 16
+# design -> its default (n, k); the mixed and sparse designs take --levels
+SIZES = {"dense": (1_000_000, 50), "dense_narrow": (4_000_000, 10), "dense_wide": (400_000, 160),
+         "mixed": (1_000_000, 5), "sparse": (1_000_000, 5)}
 
 
 def profile(step, steps: int = 10):
@@ -101,7 +109,7 @@ def tabmat_launches(step) -> dict:
 def design_and_target(kind: str, n: int, k: int, levels: int, device):
     """``(design, y, family)`` for the dense, mixed or sparse design, from a seed."""
     rng = np.random.default_rng(7)
-    if kind == "dense":
+    if kind.startswith("dense"):
         X = rng.standard_normal((n, k))
         design = DeviceDesign.from_matrix(tt.DenseMatrix(X, device=device))
         y = X @ rng.standard_normal(k) + 0.1 * rng.standard_normal(n)
@@ -129,9 +137,10 @@ def design_and_target(kind: str, n: int, k: int, levels: int, device):
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--design", choices=("dense", "mixed", "sparse"), default="dense")
-    parser.add_argument("--n", type=int, default=1_000_000)
-    parser.add_argument("--k", type=int, default=50, help="dense design's width")
+    parser.add_argument("--design", choices=tuple(SIZES), default="dense")
+    parser.add_argument("--n", type=int, default=None, help="rows (default by design)")
+    parser.add_argument("--k", type=int, default=None,
+                        help="the dense designs' width (default by design)")
     parser.add_argument("--levels", type=int, default=1000,
                         help="levels of each categorical of the mixed design")
     parser.add_argument("--repeats", type=int, default=3)
@@ -146,7 +155,9 @@ def main() -> int:
     print(card, flush=True)
 
     device = torch.device("cuda", 0)
-    design, y, family = design_and_target(args.design, args.n, args.k, args.levels, device)
+    n_default, k_default = SIZES[args.design]
+    design, y, family = design_and_target(args.design, args.n or n_default, args.k or k_default,
+                                          args.levels, device)
     n, k = design.shape
     w = torch.ones(n, dtype=torch.float64, device=device)
     b0 = torch.zeros(k, dtype=torch.float64, device=device)
