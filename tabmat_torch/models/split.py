@@ -120,6 +120,37 @@ def _coalesce_blocks(blocks, col_lists):
     return [b for b, _ in kept], [c for _, c in kept]
 
 
+def _unique_cols(cols, n_cols: int):
+    """``(uniq, inverse)`` of a column active set: ``uniq`` its sorted
+    distinct columns, ``cols == uniq[inverse]``; ``inverse`` is None when
+    ``cols`` is already sorted without repeats (or None)."""
+    if cols is None:
+        return None, None
+    cols = set_up_rows_or_cols(cols, n_cols, np.int64)
+    uniq, inverse = np.unique(cols, return_inverse=True)
+    return uniq, (None if len(uniq) == len(cols) and np.array_equal(uniq, cols) else inverse)
+
+
+def _matvec_cols(cols, n_cols: int):
+    """The set of columns a matvec sums over, sorted, or None for all.
+
+    As ``DenseMatrix.matvec``: a repeated column counts once, and a ``cols``
+    of length ``n_cols`` restricts nothing.
+    """
+    if cols is None or len(cols) == n_cols:
+        return None
+    return np.unique(set_up_rows_or_cols(cols, n_cols, np.int64))
+
+
+def _take(x, index, both: bool = False):
+    """``x[index]`` (rows and columns with ``both``) for an array or tensor."""
+    if torch.is_tensor(x):
+        index = torch.as_tensor(index, device=x.device)
+        x = x[index]
+        return x[:, index] if both else x
+    return x[np.ix_(index, index)] if both else x[index]
+
+
 def _place_segments(segments, positions, total_len):
     """Place 1-d tensor ``segments`` at global ``positions`` (zeros elsewhere)."""
     index_map = np.full(total_len, -1, dtype=np.int64)
@@ -233,23 +264,22 @@ class SplitMatrix(MatrixBase):
     # -- restriction plumbing ----------------------------------------------------
 
     def _split_col_subsets(self, cols):
-        """Map a global column active set onto each block.
+        """Map a sorted column active set without repeats onto each block.
 
         Returns ``(subset_cols_indices, subset_cols, n_cols)`` with
         ``self.indices[i][subset_cols[i]] == cols[subset_cols_indices[i]]``.
+        Callers reduce any other ``cols`` to such a set first
+        (:func:`_unique_cols`).
         """
         if cols is None:
             return self.indices, [None] * len(self.indices), self.shape[1]
-        cols = set_up_rows_or_cols(cols, self.shape[1])
-        order = np.argsort(cols, kind="stable")
-        sorted_cols = cols[order]
         subset_cols_indices, subset_cols = [], []
         for idx in self.indices:
-            pos = np.searchsorted(sorted_cols, idx)
-            pos_clipped = np.minimum(pos, len(sorted_cols) - 1)
-            found = sorted_cols[pos_clipped] == idx
-            subset_cols.append(np.where(found)[0].astype(np.int64))
-            subset_cols_indices.append(order[pos_clipped[found]].astype(np.int64))
+            pos = np.searchsorted(cols, idx)
+            found = pos < len(cols)
+            found[found] = cols[pos[found]] == idx[found]
+            subset_cols.append(np.flatnonzero(found))
+            subset_cols_indices.append(pos[found])
         return subset_cols_indices, subset_cols, len(cols)
 
     # -- core ops ------------------------------------------------------------------
@@ -313,18 +343,25 @@ class SplitMatrix(MatrixBase):
                 H = H[c][:, c]
             return H.to(d_in.device)
 
+        uniq, inverse = _unique_cols(cols, self.shape[1])
+        if inverse is not None:
+            # a categorical block's diagonal would lose the off-diagonal
+            # copies of a repeated column: assemble over the distinct ones
+            return _take(self.sandwich(d_in, rows, uniq), inverse, both=True)
         # upload the weights once; the blocks' ops reuse the device copy
         d_dev = to_tensor(d_in, device=self.device)
-        subset_cols_indices, subset_cols, n_cols = self._split_col_subsets(cols)
+        subset_cols_indices, subset_cols, n_cols = self._split_col_subsets(uniq)
         out = torch.zeros((n_cols, n_cols), dtype=d_dev.dtype, device=d_dev.device)
         idx = [torch.as_tensor(i, device=d_dev.device) for i in subset_cols_indices]
-        for i, mat_i in enumerate(self.matrices):
+        active = [i for i, c in enumerate(subset_cols) if c is None or len(c)]
+        for i in active:
+            mat_i = self.matrices[i]
             res = mat_i.sandwich(d_dev, rows, subset_cols[i])
             if isinstance(res, DiagonalResult):
                 out[idx[i], idx[i]] += res.diag
             else:
                 out[idx[i][:, None], idx[i][None, :]] = res
-            for j in range(i + 1, len(self.matrices)):
+            for j in active[active.index(i) + 1 :]:
                 res = mat_i._cross_sandwich(
                     self.matrices[j], d_dev, rows, subset_cols[i], subset_cols[j]
                 )
@@ -339,12 +376,12 @@ class SplitMatrix(MatrixBase):
         check_matvec_dimensions(self, v, transpose=False)
         check_matvec_out_shape(self, out)
 
+        cols = _matvec_cols(cols, self.shape[1])
         if self._design_operand(v_in) and out is None:
             # column restriction ≡ masking v (matvec sums over columns)
             ve = v.to(self.device)
-            if cols is not None and not is_identity_index(cols, self.shape[1]):
-                ve = ve * rows_to_mask(set_up_rows_or_cols(cols, self.shape[1]),
-                                       self.shape[1], ve.dtype, ve.device)
+            if cols is not None:
+                ve = ve * rows_to_mask(cols, self.shape[1], ve.dtype, ve.device)
             return self._get_device_design().matvec(ve).to(v_in.device)
 
         _, subset_cols, _ = self._split_col_subsets(cols)
@@ -360,6 +397,8 @@ class SplitMatrix(MatrixBase):
                 f"out array is required to have dtype {out_dtype} but has dtype {out.dtype}"
             )
         for sub_cols, idx, mat in zip(subset_cols, self.indices, self.matrices):
+            if sub_cols is not None and not len(sub_cols):
+                continue
             if torch.is_tensor(v):
                 in_vec = v[torch.as_tensor(idx, device=v.device)]
             else:
@@ -391,15 +430,20 @@ class SplitMatrix(MatrixBase):
                                           device=res.device)]
             return res.to(v_in.device)
 
-        subset_cols_indices, subset_cols, n_cols = self._split_col_subsets(cols)
+        uniq, inverse = _unique_cols(cols, self.shape[1])
+        if inverse is not None:
+            res = self.transpose_matvec(v_in, rows, uniq, out=out)
+            return res if out is not None else _take(res, inverse)
+        subset_cols_indices, subset_cols, n_cols = self._split_col_subsets(uniq)
+        active = [i for i, c in enumerate(subset_cols) if c is None or len(c)]
+        subset_cols_indices = [subset_cols_indices[i] for i in active]
         out_dtype = np.result_type(self.dtype, as_numpy_dtype(v.dtype))
         # one upload shared by every block op
         v_dev = to_tensor(v, device=self.device)
         segments = [
-            mat.transpose_matvec(v_dev, rows=rows, cols=sub_cols)
-            for sub_cols, mat in zip(subset_cols, self.matrices)
+            self.matrices[i].transpose_matvec(v_dev, rows=rows, cols=subset_cols[i])
+            for i in active
         ]
-        cols_arr = None if cols is None else np.asarray(cols, dtype=np.int64)
         if not torch.is_tensor(v_in):
             out_is_none = out is None
             if out_is_none:
@@ -410,15 +454,17 @@ class SplitMatrix(MatrixBase):
                     f"dtype {out.dtype}"
                 )
             for idx, seg in zip(subset_cols_indices, segments):
-                pos = idx if out_is_none or cols_arr is None else cols_arr[idx]
+                pos = idx if out_is_none or uniq is None else uniq[idx]
                 out[pos, ...] += to_numpy(seg).astype(out.dtype, copy=False)
             return out
+        if not segments:  # an empty active set
+            return v_in.new_zeros((0,) + tuple(v.shape[1:])) if out is None else out
         if out is None:
             return _place_segments(segments, subset_cols_indices, n_cols).to(v_in.device)
-        if cols_arr is None:
+        if uniq is None:
             positions, total = subset_cols_indices, self.shape[1]
         else:
-            positions, total = [cols_arr[idx] for idx in subset_cols_indices], out.shape[0]
+            positions, total = [uniq[idx] for idx in subset_cols_indices], out.shape[0]
         placed = _place_segments(segments, positions, total)
         return out.add_(placed.to(device=out.device, dtype=out.dtype))
 

@@ -16,6 +16,8 @@ version for a CPU plan.  The reference differenced a cumsum at the bounds;
 the port sums each segment directly, so no error grows with the prefix.
 """
 
+import functools
+
 import numpy as np
 import torch
 
@@ -26,8 +28,8 @@ from . import segsum_kernel
 class SegmentPlan:
     """Reduction plan for a fixed integer key array, on one device.
 
-    ``spanning`` lists the segments the CUDA kernel's second pass joins
-    (built for a CUDA plan only).
+    ``tables`` holds what a CUDA kernel derives from the layout alone, built
+    on the card at its first call (the sparse product's tile starts).
     """
 
     def __init__(self, perm: torch.Tensor, bounds: torch.Tensor, n_rows: int):
@@ -35,9 +37,14 @@ class SegmentPlan:
         self.bounds = bounds
         self.num_segments = bounds.shape[0] - 1
         self.n_rows = n_rows
-        self.spanning = (
-            segsum_kernel.spanning_segments(bounds) if perm.device.type == "cuda" else None
-        )
+        self.tables = {}
+
+    @functools.cached_property
+    def spanning(self) -> torch.Tensor:
+        """The segments the CUDA segment sum's second pass joins, found at
+        its first call (a host-side ``nonzero``); the sparse product needs
+        none."""
+        return segsum_kernel.spanning_segments(self.bounds)
 
     @property
     def device(self) -> torch.device:

@@ -20,9 +20,14 @@ nonzeros (``ops/sparse_ops.py``, ``models/sparse.py:423-450``,
 that sums every segment directly, so no error grows with a prefix.
 
 Bound: the bytes (``a``, ``idx``, ``bounds``, one gathered row of ``values``
-per element, the output).  Segment lengths range from 0 to E, so the walk is
-balanced over the sorted elements as ``segsum.cu``'s is (the shared
-``segment_walk.cuh``): no atomics, and a result repeats bit for bit.
+per element, the output).  Segment lengths range from 0 to E, so the kernel
+walks a merge path over the W segment ends and the E elements together: a
+tile is a fixed span of that merged list; a block stages a tile's products
+and its segment sums in shared memory, and joins a segment that spans
+threads or tiles in a fixed order.  No atomics: a result repeats bit for
+bit.  Where each tile starts depends on the layout alone, so the wrapper
+builds that table on the card at a plan's first call and keeps it in
+``plan.tables``.
 
 The wrapper takes the plain version only for a tensor on the CPU; for a
 CUDA tensor it launches the kernel or raises.
@@ -32,8 +37,6 @@ import ctypes
 
 import torch
 
-from .segsum_kernel import CHUNK
-
 # Launch counts by instantiation: each rises by one where that kernel is
 # launched, nowhere else.
 launches = {"spmv<double>": 0, "spmv<float>": 0}
@@ -42,9 +45,16 @@ _NAMES = {torch.float64: "spmv<double>", torch.float32: "spmv<float>"}
 _SYMBOLS = {"spmv<double>": "tabmat_spmv_f64", "spmv<float>": "tabmat_spmv_f32"}
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
 ]
+_TABLE_SIGNATURES = {
+    # (W, E, m): the merge tiles of a call
+    "tabmat_spmv_tiles": [ctypes.c_int, ctypes.c_longlong, ctypes.c_int],
+    # (bounds, W, E, m, starts, stream): where each tile begins
+    "tabmat_spmv_starts": [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                           ctypes.c_void_p, ctypes.c_void_p],
+}
 
 _lib = None
 
@@ -109,25 +119,43 @@ def spmv(values: torch.Tensor, plan, a: torch.Tensor, scale=None) -> torch.Tenso
         return torch.zeros((W,) + tuple(values.shape[1:]), dtype=values.dtype,
                            device=values.device)
     name = _NAMES[values.dtype]
-    chunks = -(-E // CHUNK)
+    from .. import _build
+
     with torch.cuda.device(values.device):
         lib = _library()
+        stream = torch.cuda.current_stream(values.device).cuda_stream
+        starts = _tile_starts(lib, plan, W, E, m, stream)
         out = torch.empty((W,) + tuple(values.shape[1:]), dtype=values.dtype,
                           device=values.device)
-        parts = torch.empty((2, chunks, m), dtype=values.dtype, device=values.device)
-        spanning = plan.spanning
+        carry_val = torch.empty((starts.shape[0] - 1, m), dtype=values.dtype,
+                                device=values.device)
         err = getattr(lib, _SYMBOLS[name])(
-            a.data_ptr(), plan.perm.data_ptr(), plan.bounds.data_ptr(),
+            a.data_ptr(), plan.perm.data_ptr(), plan.bounds.data_ptr(), starts.data_ptr(),
             None if scale is None else scale.data_ptr(), values.data_ptr(),
-            spanning.data_ptr(), W, E, m, spanning.shape[0],
-            out.data_ptr(), parts[0].data_ptr(), parts[1].data_ptr(),
-            torch.cuda.current_stream(values.device).cuda_stream,
+            W, E, m, out.data_ptr(), carry_val.data_ptr(), stream,
         )
-        from .. import _build
-
         _build.raise_on(lib, err, "spmv.cu kernel")
         launches[name] += 1
     return out
+
+
+def _tile_starts(lib, plan, W: int, E: int, m: int, stream) -> torch.Tensor:
+    """Where each merge tile of ``plan`` begins (int32, one per tile and one
+    past the last), for the tile size that ``m`` selects (one column or a
+    column group): built on the card at the first call and kept in
+    ``plan.tables``."""
+    key = ("spmv_starts", m == 1)
+    starts = plan.tables.get(key)
+    if starts is None:
+        from .. import _build
+
+        tiles = lib.tabmat_spmv_tiles(W, E, m)
+        starts = torch.empty(tiles + 1, dtype=torch.int32, device=plan.perm.device)
+        err = lib.tabmat_spmv_starts(plan.bounds.data_ptr(), W, E, m, starts.data_ptr(),
+                                     stream)
+        _build.raise_on(lib, err, "spmv.cu tile starts")
+        plan.tables[key] = starts
+    return starts
 
 
 def _library():
@@ -136,5 +164,6 @@ def _library():
     if _lib is None:
         from .. import _build
 
-        _lib = _build.bind("spmv", {symbol: _ARGTYPES for symbol in _SYMBOLS.values()})
+        signatures = {symbol: _ARGTYPES for symbol in _SYMBOLS.values()}
+        _lib = _build.bind("spmv", {**signatures, **_TABLE_SIGNATURES})
     return _lib

@@ -265,19 +265,34 @@ def _spmv_layout(rng, lengths, n_src, cuda):
                        n_src)
 
 
+# merge items per tile of csrc/spmv.cu: 128 threads x 7 for m = 1, 256 x 3
+# for m > 1 (groups of 4 columns in f64, 8 in f32)
+SPMV_TILE = {1: 128 * 7, "m>1": 256 * 3}
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
 @pytest.mark.parametrize("with_scale", [False, True], ids=["a", "a*scale"])
-@pytest.mark.parametrize("m", [1, 5, 9])
-@pytest.mark.parametrize("layout", ["empty_and_long", "one_segment", "mostly_empty"])
+@pytest.mark.parametrize("m", [1, 4, 5, 8, 9, 17])
+@pytest.mark.parametrize("layout", ["empty_and_long", "one_segment", "mostly_empty",
+                                    "ends_on_tile_edges", "long_among_empties", "w1_e1",
+                                    "trailing_empties"])
 def test_spmv_matches_plain_and_repeats(cuda, layout, m, with_scale, dtype):
     from tabmat_torch.ops import spmv_kernel as spk
 
     rng = np.random.default_rng(m + 10 * with_scale)
     n_src = 50_003
+    tile = SPMV_TILE[1 if m == 1 else "m>1"]
     lengths = {
         "empty_and_long": np.r_[0, 0, rng.integers(0, 40, 20_000), 0, 70_000, 0],
         "one_segment": [123_457],
         "mostly_empty": np.where(rng.random(300_000) < 0.03, rng.integers(1, 5, 300_000), 0),
+        # a segment of tile - 1 elements ends on a tile's last merge item,
+        # one of tile elements on the next tile's first
+        "ends_on_tile_edges": np.r_[[tile - 1] * 4, [tile] * 3, 0, [tile - 1] * 2, 0, 0,
+                                    [2 * tile - 1] * 2],
+        "long_among_empties": np.r_[[0] * 5000, 200 * tile, [0] * 5000],
+        "w1_e1": [1],
+        "trailing_empties": np.r_[rng.integers(0, 30, 3000), [0] * 20_000],
     }[layout]
     plan = _spmv_layout(rng, lengths, n_src, cuda)
     E = plan.perm.shape[0]

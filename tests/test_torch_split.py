@@ -111,6 +111,94 @@ def test_split_ops(layout, flavor):
                                    np.asarray(ref.sandwich(d, **kw)), atol=ATOL)
 
 
+# ROADMAP C1 (closed): an empty, repeated or unsorted ``cols=`` on a
+# SplitMatrix, held against the dense oracle with numpy and tensor operands
+C1_COLS = {"empty": [], "repeated": [0, 0], "repeats_unsorted": [3, 1, 3],
+           "unsorted_subset": [9, 0, 14, 2, 8]}
+
+
+def _c1_split(kind):
+    """The interleaved dense + categorical split, or a dense + sparse +
+    categorical one with its columns permuted across the blocks."""
+    if kind == "dense_cat":
+        return _pair("interleaved")[1]
+    from scipy import sparse as sps
+
+    rng = np.random.default_rng(12)
+    n, ks, levels = 400, 4, 9
+    blocks = [
+        tt.DenseMatrix(rng.standard_normal((n, KD)), device="cpu"),
+        tt.SparseMatrix(sps.random(n, ks, density=0.2, format="csc", random_state=5),
+                        device="cpu"),
+        tt.CategoricalMatrix(_cat(levels, 13, n=n), categories=np.arange(levels),
+                             cat_missing_method="zero", device="cpu"),
+    ]
+    order = rng.permutation(KD + ks + levels)
+    return tt.SplitMatrix(blocks, [np.sort(p) for p in np.split(order, [KD, KD + ks])])
+
+
+@pytest.mark.parametrize("operand", ["numpy", "tensor"])
+@pytest.mark.parametrize("cols", list(C1_COLS))
+@pytest.mark.parametrize("op", ["sandwich", "matvec", "transpose_matvec"])
+@pytest.mark.parametrize("kind", ["dense_cat", "dense_sparse_cat"])
+def test_empty_and_repeated_cols_match_the_dense_oracle(kind, op, cols, operand):
+    X = _c1_split(kind)
+    A = X.toarray()
+    n, k = A.shape
+    c = np.asarray(C1_COLS[cols], dtype=np.int64)
+    rng = np.random.default_rng(7)
+
+    def arg(x):
+        return torch.tensor(x) if operand == "tensor" else x
+
+    def check(got, want):
+        assert torch.is_tensor(got) == (operand == "tensor")
+        assert tuple(got.shape) == want.shape
+        np.testing.assert_allclose(_np(got), want, atol=ATOL)
+
+    if op == "sandwich":
+        d = rng.random(n)
+        check(X.sandwich(arg(d), cols=c), (A[:, c].T * d) @ A[:, c])
+    elif op == "transpose_matvec":
+        r = rng.standard_normal(n)
+        check(X.transpose_matvec(arg(r), cols=c), (A.T @ r)[c])
+    else:
+        # a matvec sums over the SET of cols, as the port's DenseMatrix does
+        v = rng.standard_normal(k)
+        want = tt.DenseMatrix(A, device="cpu").matvec(v, cols=c)
+        s = np.unique(c)
+        np.testing.assert_allclose(want, A[:, s] @ v[s], atol=ATOL)
+        check(X.matvec(arg(v), cols=c), want)
+
+
+@pytest.mark.parametrize("operand", ["numpy", "tensor"])
+def test_standardized_split_with_repeated_cols_matches_the_reference(operand):
+    """ROADMAP C1: the reference's StandardizedMatrix with jax operands
+    reaches its split's device path, which handles a repeated column (its
+    numpy tmv path keeps the fault); the port agrees with that path and
+    with the dense oracle on both of its own paths."""
+    ref, port = _pair("interleaved")
+    w = np.full(N, 1 / N)
+    std_ref, _, _ = ref.standardize(w, True, True)
+    std_port, _, _ = port.standardize(w, True, True)
+    rng = np.random.default_rng(8)
+    d, r = rng.random(N), rng.standard_normal(N)
+    cols = np.array([0, 0, 3, 3])
+
+    def arg(x):
+        return torch.tensor(x) if operand == "tensor" else x
+
+    A = std_port.toarray()[:, cols]
+    got = _np(std_port.sandwich(arg(d), cols=cols))
+    np.testing.assert_allclose(got, np.asarray(std_ref.sandwich(jnp.asarray(d), cols=cols)),
+                               atol=ATOL)
+    np.testing.assert_allclose(got, (A.T * d) @ A, atol=1e-10)
+    got = _np(std_port.transpose_matvec(arg(r), cols=cols))
+    np.testing.assert_allclose(
+        got, np.asarray(std_ref.transpose_matvec(jnp.asarray(r), cols=cols)), atol=ATOL)
+    np.testing.assert_allclose(got, A.T @ r, atol=1e-10)
+
+
 def test_split_out_accumulation():
     ref, port = _pair("interleaved")
     rng = np.random.default_rng(2)

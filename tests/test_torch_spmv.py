@@ -3,8 +3,8 @@ against a numpy loop, and the wrapper's checks.
 
 Layouts cover empty segments at the start, in the middle and at the end,
 one segment holding every element, segments that cross the kernel's
-16-element chunks, m ∈ {1, 5, 9} and an optional per-row scale, in f64 and
-f32.  Tolerances: the loop sums in another order than ``index_add_``; f64 is
+threads (7 merge items each for m = 1), m ∈ {1, 5, 9} and an optional
+per-row scale, in f64 and f32.  Tolerances: the loop sums in another order than ``index_add_``; f64 is
 held to 1e-13 and f32 to 2e-5 of each segment's Σ|term| (the limits
 ``chip_smoke.py`` holds the kernel to).
 """
@@ -13,12 +13,12 @@ import numpy as np
 import pytest
 import torch
 
-from tabmat_torch.ops import segsum_kernel, spmv_kernel
+from tabmat_torch.ops import spmv_kernel
 from tabmat_torch.ops.segments import SegmentPlan
 from tabmat_torch.ops.spmv_kernel import spmv, spmv_plain
 
 CPU = torch.device("cpu")
-C = segsum_kernel.CHUNK
+C = 7  # merge items a thread of csrc/spmv.cu takes for m = 1
 TOL = {torch.float64: 1e-13, torch.float32: 2e-5}
 
 # segment lengths of each layout

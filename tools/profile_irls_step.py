@@ -28,7 +28,8 @@ each ``inner_precision`` it prints one JSON line:
 - from a ``torch.profiler`` trace of 10 steps: ``kernel_ms`` (device time of
   all kernels per step), ``idle_share`` (1 - kernel time / traced wall
   time), ``launches`` (``cudaLaunchKernel`` calls per step), ``launch_host_ms``
-  (their host time per step) and the five kernels with the most device time;
+  (their host time per step) and the twelve kernels with the most device
+  time (names cut to 120 characters);
 - ``tabmat_launches``: launches per step of each hand-written kernel, from
   the wrappers' own counts.
 
@@ -84,7 +85,7 @@ def profile(step, steps: int = 10):
         "traced_wall_ms": wall_ms / steps,
         "launches": sum(e.count for e in launch) / steps,
         "launch_host_ms": sum(e.self_cpu_time_total for e in launch) / 1e3 / steps,
-        "top": sorted(kernels, key=lambda kv: -kv[1])[:5],
+        "top": [(name[:120], ms) for name, ms in sorted(kernels, key=lambda kv: -kv[1])[:12]],
     }, prof
 
 
