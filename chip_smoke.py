@@ -10,15 +10,18 @@ Phases, each printed as it runs:
 1. environment: the card's name and power limit, torch/CUDA/nvcc versions,
    TF32 off;
 2. build of the CUDA kernels from ``tabmat_torch/csrc``, one ``nvcc`` per
-   source (six sources), all at once (seconds, ptxas registers and spills);
+   source (seven sources), all at once (seconds, ptxas registers and spills);
 3. each kernel against its plain PyTorch version on the card: each of the
-   three sandwich kernels through its own wrapper (``sandwich<T>`` at
-   1,000,000 x 50 and k in {1, 7, 50, 64, 100, 128, 200};
-   ``sandwich_narrow<T>`` at 4,000,000 x 10 and k in {1, 2, 5, 10, 31, 32};
+   four sandwich kernels through its own wrapper (``sandwich<double>`` at
+   1,000,000 x 50 and ``sandwich<float>`` at 400,000 x 200, both at k in
+   {1, 7, 50, 64, 100, 128, 200}; ``sandwich_narrow<T>`` at 4,000,000 x 10
+   and k in {1, 2, 5, 10, 31, 32}; ``sandwich_tri<float>`` at 1,000,000 x
+   50, 400,000 x 160 and k in {33, 50, 64, 100, 160, 176};
    ``sandwich_mma<double>`` at 400,000 x 160 and k in {129, 160, 200, 1000}),
    with negative and zero weights, exactly symmetric and bit-identical across
    two launches, and a control that the f32 limit rejects a TF32-rounded
-   product; the width dispatch at 32/33 and 128/129; the range prepass
+   product; the width dispatch at 32/33 and 128/129 (f64) and 32/33 and
+   176/177 (f32); the range prepass
    ``column_absmax``; the gather at 1,000,000 rows (codes with sentinels, a
    stack of two categoricals, and sorted bounds), exactly equal; the segment
    sum at W in {1, 7, 1000, 10^6} segments, 1-D and 5 columns, with
@@ -33,12 +36,16 @@ Phases, each printed as it runs:
    matvec and transpose_matvec with and without active sets, standardize and
    the standardized sandwich, then ``fit_glm`` for gaussian and poisson in
    both inner precisions, each held against the same algorithm in numpy;
+   ``sandwich_tri<float>`` in the f32 steps, and no ``sandwich<float>``;
 4a. the same checks on the reference bench's ``dense`` design, 4,000,000 x
    10 (``tabmat_tpu/bench/generate.py:70``), built without ``device=``: the
    narrow sandwich kernel in f64 and f32 steps, and no tiled one;
 4b. the same checks at 400,000 x 160, built without ``device=``, the widest
    design on which the JAX package runs its slice-pair kernel by default:
-   the FP64 tensor-core kernel in f64 steps, ``sandwich<float>`` in f32;
+   the FP64 tensor-core kernel in f64 steps, ``sandwich_tri<float>`` in f32;
+4c. a float32 DenseMatrix at 400,000 x 200, built without ``device=``, past
+   the triangle kernel's widths: its sandwich with and without active sets
+   through ``sandwich<float>``, against numpy in float64;
 5. the mixed main path at 1,000,000 x (5 dense + 1000 + 1000 levels),
    built without ``device=``: DeviceDesign matvec, transpose_matvec and the
    explicit sandwich in f64 and f32 against scipy CSR, a float32
@@ -58,16 +65,17 @@ Phases, each printed as it runs:
 8. times from CUDA events after warm-up: each kernel, its plain version and
    the one PyTorch call that computes the same function (``torch.einsum``
    for the sandwiches, cuSPARSE through ``torch.sparse_csr_tensor`` for the
-   sparse product), the new sandwich kernels at 1M x 5, 4M x 10, 400k x 160
-   and ``sparse_wide``'s panels, and one ``irls_step`` on each path in each
-   inner precision, with the kernel launches per step.
+   sparse product), the sandwich kernels at 1M x 50, 1M x 5, 4M x 10,
+   400k x 160, 400k x 200 and ``sparse_wide``'s panels, and one
+   ``irls_step`` on each path in each inner precision, with the kernel
+   launches per step.
 
 The launch counts are set to 0 just before each main-path phase (4 to 7)
 and read just after; each path must launch its kernels (the narrow and
 wide paths and the mixed and sparse paths' 5-column dense cell the width
 dispatch's kernels, the sparse main path both sparse products).  Any failed
 check raises, so the script exits 0 only when every check passed.  The
-last three lines are the ``kernels`` JSON object (twelve instantiations),
+last three lines are the ``kernels`` JSON object (thirteen instantiations),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 Without CUDA it exits non-zero and prints no result.
 """
@@ -88,22 +96,26 @@ NARROW_N, NARROW_K = 4_000_000, 10
 # path (b): the widest design on which the JAX package runs its slice-pair
 # kernel by default (128 < k <= 160 and n*k <= 2^26, ozaki.py:136-154)
 WIDE_N, WIDE_K = 400_000, 160
-# sandwich kernel -> (its full-size shape, the widths it is held at on
-# EDGE_N rows); the tiled kernel takes any width, the wrappers launch it
-# directly
+# f32 past the triangle kernel's widths: the 4c phase and the times of
+# sandwich<float>
+F32_WIDE_K = 200
+# sandwich kernel -> (its full-size shapes, the first its row in the kernels
+# line; the widths it is held at on EDGE_N rows); the tiled kernel takes any
+# width, the wrappers launch it directly
 SANDWICH_CASES = {
-    "sandwich<double>": ((N, K), (1, 7, 50, 64, 100, 128, 200)),
-    "sandwich<float>": ((N, K), (1, 7, 50, 64, 100, 128, 200)),
-    "sandwich_narrow<double>": ((NARROW_N, NARROW_K), (1, 2, 5, 10, 31, 32)),
-    "sandwich_narrow<float>": ((NARROW_N, NARROW_K), (1, 2, 5, 10, 31, 32)),
-    "sandwich_mma<double>": ((WIDE_N, WIDE_K), (129, 160, 200, 1000)),
+    "sandwich<double>": (((N, K),), (1, 7, 50, 64, 100, 128, 200)),
+    "sandwich<float>": (((WIDE_N, F32_WIDE_K),), (1, 7, 50, 64, 100, 128, 200)),
+    "sandwich_narrow<double>": (((NARROW_N, NARROW_K),), (1, 2, 5, 10, 31, 32)),
+    "sandwich_narrow<float>": (((NARROW_N, NARROW_K),), (1, 2, 5, 10, 31, 32)),
+    "sandwich_tri<float>": (((N, K), (WIDE_N, WIDE_K)), (33, 50, 64, 100, 160, 176)),
+    "sandwich_mma<double>": (((WIDE_N, WIDE_K),), (129, 160, 200, 1000)),
 }
 # the width dispatch at its boundaries: (k, dtype name) -> kernel
 ROUTES = {
     (32, "float64"): "sandwich_narrow<double>", (33, "float64"): "sandwich<double>",
     (128, "float64"): "sandwich<double>", (129, "float64"): "sandwich_mma<double>",
-    (32, "float32"): "sandwich_narrow<float>", (33, "float32"): "sandwich<float>",
-    (128, "float32"): "sandwich<float>", (129, "float32"): "sandwich<float>",
+    (32, "float32"): "sandwich_narrow<float>", (33, "float32"): "sandwich_tri<float>",
+    (176, "float32"): "sandwich_tri<float>", (177, "float32"): "sandwich<float>",
 }
 SLAB = 200  # columns of sparse_wide's S held against scipy on the host
 # the mixed design of bench.py:360-371: 5 dense columns and two 1000-level
@@ -152,6 +164,8 @@ KERNELS = {
                                 "tabmat_tpu/ops/pallas_sandwich_v3.py:316"),
     "sandwich_narrow<float>": ("tabmat_torch/csrc/sandwich_narrow.cu",
                                "tabmat_tpu/ops/pallas_kernels.py:34"),
+    "sandwich_tri<float>": ("tabmat_torch/csrc/sandwich_tri.cu",
+                            "tabmat_tpu/ops/pallas_kernels.py:34"),
     "sandwich_mma<double>": ("tabmat_torch/csrc/sandwich_mma.cu",
                              "tabmat_tpu/ops/pallas_pairs.py:103"),
     "column_absmax": ("tabmat_torch/csrc/sandwich.cu", "tabmat_tpu/ops/pallas_sandwich_v4.py:491"),
@@ -162,9 +176,9 @@ KERNELS = {
     "spmv<double>": ("tabmat_torch/csrc/spmv.cu", "tabmat_tpu/ops/pallas_tmv_fused.py:179"),
     "spmv<float>": ("tabmat_torch/csrc/spmv.cu", "tabmat_tpu/ops/pallas_tmv_fused.py:179"),
 }
-DENSE_KERNELS = ("sandwich<double>", "sandwich<float>", "column_absmax")
+DENSE_KERNELS = ("sandwich<double>", "sandwich_tri<float>", "column_absmax")
 NARROW_KERNELS = ("sandwich_narrow<double>", "sandwich_narrow<float>", "column_absmax")
-WIDE_KERNELS = ("sandwich_mma<double>", "sandwich<float>", "column_absmax")
+WIDE_KERNELS = ("sandwich_mma<double>", "sandwich_tri<float>", "column_absmax")
 SPARSE_KERNELS = ("spmv<double>", "spmv<float>")
 # the mixed path's 5-column dense cell takes the narrow kernel
 MIXED_KERNELS = NARROW_KERNELS + ("gather<double>", "gather<float>", "segsum<double>",
@@ -280,8 +294,8 @@ def _tf32_control(X, d) -> None:
 def phase_kernels(device, cases=None, edge_n: int = EDGE_N, absmax_shapes=None) -> dict:
     """Each sandwich kernel and the prepass against their plain versions, and
     the width dispatch at its boundaries; returns max|Δ| at each kernel's
-    full-size shape.  ``cases`` maps a sandwich kernel to its full-size shape
-    and its widths on ``edge_n`` rows (default ``SANDWICH_CASES``)."""
+    first full-size shape.  ``cases`` maps a sandwich kernel to its full-size
+    shapes and its widths on ``edge_n`` rows (default ``SANDWICH_CASES``)."""
     from tabmat_torch.ops import sandwich_kernel as sk
 
     cases = SANDWICH_CASES if cases is None else cases
@@ -291,11 +305,11 @@ def phase_kernels(device, cases=None, edge_n: int = EDGE_N, absmax_shapes=None) 
     gen = torch.Generator(device=device).manual_seed(3)
     on_card = device.type == "cuda"
     max_abs = {}
-    for name, (full, widths) in cases.items():
+    for name, (fulls, widths) in cases.items():
         dtype = torch.float64 if name.endswith("<double>") else torch.float32
         tol = F64_TOL if dtype == torch.float64 else F32_TOL
         wrapper = sk.KERNEL_WRAPPERS[name]
-        for rows, cols in [full] + [(edge_n, kk) for kk in widths]:
+        for rows, cols in list(fulls) + [(edge_n, kk) for kk in widths]:
             X = torch.randn(rows, cols, device=device, dtype=dtype, generator=gen)
             d = torch.randn(rows, device=device, dtype=dtype, generator=gen)
             d[::5] = 0.0  # zeros, as masked rows arrive
@@ -312,10 +326,10 @@ def phase_kernels(device, cases=None, edge_n: int = EDGE_N, absmax_shapes=None) 
                 if not torch.equal(S, again):
                     raise AssertionError(f"{name} {rows}x{cols}: two launches differ")
             err = float((S - P).abs().max())
-            if (rows, cols) == full:
+            if (rows, cols) == fulls[0]:
                 max_abs[name] = err
-                if dtype == torch.float32:
-                    _tf32_control(X, d)
+            if (rows, cols) in fulls and dtype == torch.float32:
+                _tf32_control(X, d)
             _check(f"{name} {rows}x{cols} relerr (symmetric, repeats exactly)",
                    err / float(P.abs().max()), tol)
             del X, d, S, again, P
@@ -697,6 +711,31 @@ def phase_main_path(device, n: int, k: int, fit_steps: int = FIT_STEPS, seed: in
     return {"fit_launches": fit_launches, "betas": betas}
 
 
+def phase_f32_matrix(n: int, k: int, device=None, seed: int = 9,
+                     label: str = "[4c] float32 DenseMatrix") -> None:
+    """A float32 DenseMatrix through the public API, its sandwich with and
+    without active sets checked against numpy in float64; ``device=None``
+    builds without ``device=`` (the card)."""
+    import tabmat_torch as tt
+
+    print(f"{label} {n}x{k}, device={'default' if device is None else device}", flush=True)
+    rng = np.random.default_rng(seed)
+    X_np = rng.standard_normal((n, k)).astype(np.float32)
+    d_np = (rng.random(n) - 0.25).astype(np.float32)
+    d_np[::11] = 0.0
+    dm = tt.DenseMatrix(X_np) if device is None else tt.DenseMatrix(X_np, device=device)
+    if dm.dtype != np.float32 or (device is None and dm.device.type != "cuda"):
+        raise AssertionError(f"a float32 DenseMatrix became {dm.dtype} on {dm.device}")
+    X64 = X_np.astype(np.float64)
+    _check("sandwich relerr", _relerr(dm.sandwich(d_np), (X64 * d_np[:, None]).T @ X64), F32_TOL)
+    rows = np.sort(rng.choice(n, n // 2, replace=False))
+    cols = np.arange(k - 1, 9, -1)  # all but ten, reversed
+    sub = X64[rows][:, cols]
+    _check(f"sandwich rows+{len(cols)} cols relerr",
+           _relerr(dm.sandwich(d_np, rows=rows, cols=cols), (sub * d_np[rows, None]).T @ sub),
+           F32_TOL)
+
+
 def phase_mixed_path(n: int, kd: int, levels: int, device=None, fit_steps: int = FIT_STEPS,
                      seed: int = 1, sparse=None) -> dict:
     """The mixed main path through the public API, checked against scipy CSR
@@ -865,12 +904,14 @@ def sandwich_bound(n: int, k: int, size: int):
 
 
 # sandwich kernel -> the shapes phase 8 times it at; the first is its row
-# in the kernels line (the 1M x 50 main path, path (a), path (b))
+# in the kernels line (the 1M x 50 main path, path (a), path (b), the f32
+# matrix past the triangle kernel's widths)
 SANDWICH_TIMES = {
     "sandwich<double>": ((N, K),),
-    "sandwich<float>": ((N, K),),
+    "sandwich<float>": ((WIDE_N, F32_WIDE_K),),
     "sandwich_narrow<double>": ((NARROW_N, NARROW_K), (N, MIX_KD)),
     "sandwich_narrow<float>": ((NARROW_N, NARROW_K), (N, MIX_KD)),
+    "sandwich_tri<float>": ((N, K), (WIDE_N, WIDE_K)),
     "sandwich_mma<double>": ((WIDE_N, WIDE_K),),
 }
 
@@ -1081,16 +1122,19 @@ def main() -> int:
         main_launches.append(counts)
         return result
 
-    tiled = ("sandwich<double>", "sandwich<float>")
-    run_main_path("dense main path", phase_main_path, device, N, K, must_launch=DENSE_KERNELS)
+    wider = ("sandwich<double>", "sandwich<float>", "sandwich_tri<float>",
+             "sandwich_mma<double>")
+    run_main_path("dense main path", phase_main_path, device, N, K, must_launch=DENSE_KERNELS,
+                  must_not=("sandwich<float>",))
     run_main_path("narrow dense path", phase_main_path, None, NARROW_N, NARROW_K,
-                  label="[4a] narrow dense path", must_launch=NARROW_KERNELS,
-                  must_not=tiled + ("sandwich_mma<double>",))
+                  label="[4a] narrow dense path", must_launch=NARROW_KERNELS, must_not=wider)
     run_main_path("wide dense path", phase_main_path, None, WIDE_N, WIDE_K,
                   label="[4b] wide dense path", must_launch=WIDE_KERNELS,
-                  must_not=("sandwich<double>",))
+                  must_not=("sandwich<double>", "sandwich<float>"))
+    run_main_path("float32 matrix path", phase_f32_matrix, WIDE_N, F32_WIDE_K,
+                  must_launch=("sandwich<float>",), must_not=("sandwich_tri<float>",))
     mixed = run_main_path("mixed main path", phase_mixed_path, N, MIX_KD, MIX_LEVELS,
-                          must_launch=MIXED_KERNELS, must_not=tiled + ("sandwich_mma<double>",))
+                          must_launch=MIXED_KERNELS, must_not=wider)
     run_main_path("standalone sparse phase", phase_sparse_standalone, designs,
                   must_launch=SPARSE_KERNELS[:1])
     wide = run_main_path("sparse_wide sandwich", phase_sparse_wide, designs["sparse_wide"],

@@ -1,7 +1,13 @@
 """The hand-written CUDA sandwiches ``S = Xᵀ diag(d) X``, their width
 dispatch, the range prepass, and their plain versions.
 
-Kernels, one wrapper each, chosen by :func:`route` on the width k:
+Kernels, one wrapper each, chosen by :func:`route` on the width k and the
+dtype:
+
+- float64: k ≤ 32 ``sandwich_narrow<double>``, 33-128 ``sandwich<double>``,
+  k > 128 ``sandwich_mma<double>``;
+- float32: k ≤ 32 ``sandwich_narrow<float>``, 33-176 ``sandwich_tri<float>``,
+  k > 176 ``sandwich<float>``.
 
 - ``sandwich_narrow<T>`` (``csrc/sandwich_narrow.cu``, k ≤ 32, f64 and
   f32): replaces ``tabmat_tpu/ops/pallas_sandwich_v3.py:_v3p_kernel`` (k
@@ -12,22 +18,29 @@ Kernels, one wrapper each, chosen by :func:`route` on the width k:
   bytes of X (1 FLOP/byte at k = 10): a block owns every upper-triangle
   entry in 4 × 4 register micro-tiles and reads X once, coalesced; the row
   splits fill one wave.
-- ``sandwich<T>`` (``csrc/sandwich.cu``, 33 ≤ k ≤ 128 in f64, k > 32 in
+- ``sandwich_tri<float>`` (``csrc/sandwich_tri.cu``, f32 33 ≤ k ≤ 176):
+  replaces ``pallas_kernels.py:_sandwich_kernel`` (``Precision.HIGHEST``)
+  at these widths.  The narrow kernel's design with 8 × 8 micro-tiles: a
+  block owns the whole upper triangle (at most 253 micro-tiles, one a
+  thread), rows staged at a padded pitch with three cp.async stages, four
+  16-byte shared loads for 64 FFMAs.  Bound by bytes at 1M × 50 and by
+  operations at 400k × 160.
+- ``sandwich<T>`` (``csrc/sandwich.cu``, 33 ≤ k ≤ 128 in f64, k > 176 in
   f32): replaces ``pallas_sandwich_v4.py:_v4_kernel`` (exact f64 through
   int8 anti-diagonal plane dots), the unpacked ``_v5_kernel`` and
   ``pallas_sandwich_v3.py:_v3_kernel`` (k ≤ 100), and in f32
-  ``pallas_kernels.py:_sandwich_kernel`` (``Precision.HIGHEST``).  A 64 × 64
-  FFMA tile per upper tile pair, X read once per column tile (once in all
-  for k ≤ 64): at 1M × 50 f64 about 6 FLOP/byte, just under the FP64 FFMA
-  ridge of about 10 (34 TFLOP/s over 3.35 TB/s, NVIDIA's data sheet).
+  ``pallas_kernels.py:_sandwich_kernel`` past 176.  A 64 × 64 FFMA tile per
+  upper tile pair, X read once per column tile (once in all for k ≤ 64):
+  at 1M × 50 f64 about 6 FLOP/byte, just under the FP64 FFMA ridge of about
+  10 (34 TFLOP/s over 3.35 TB/s, NVIDIA's data sheet).
 - ``sandwich_mma<double>`` (``csrc/sandwich_mma.cu``, f64 k > 128):
   replaces ``tabmat_tpu/ops/pallas_pairs.py:_pairs_kernel`` and
   ``:_sliced_pairs_kernel`` (the slice-pair contractions whose f64
   combination is ``AᵀB`` with A = d·X, the TPU default for 128 < k ≤ 160),
   and v3 / v5 beyond one lane tile.  Balanced at 400k × 160 (0.153 ms of
   bytes, 0.154 ms of operations at 67 TFLOP/s), bound by operations at
-  k = 10⁴: FP64 tensor cores through ``mma.sync.m8n8k4``, 64 × 64 tiles of
-  four 32 × 32 warp tiles.
+  k = 10⁴: FP64 tensor cores through ``mma.sync.m16n8k8``, 64 × 64 tiles
+  of four 32 × 32 warp tiles.
 
 Hopper has native FP64, so every f64 kernel computes the function
 directly, without the TPU's planes; f32 uses FFMA, never TF32.  Each
@@ -35,7 +48,8 @@ kernel sums its per-block partials in a second pass in a fixed order: no
 atomics, so results repeat bit for bit and S is exactly symmetric.  With
 ``out=`` the second pass adds S into ``out``, so row panels of one product
 sum in order in one (k, k) buffer.  128 is where the JAX package leaves v4
-for the pair kernels (``pallas_sandwich_v4.py:71``).
+for the pair kernels (``pallas_sandwich_v4.py:71``); 176 is the widest k
+whose upper 8 × 8 micro-tiles fit one 256-thread block.
 
 - ``column_absmax``: ``max_i |X[i, j]| · |d[i]|`` per column, replacing the
   v4 prepass ``pallas_sandwich_v4.py:_max_kernel``.  The TPU used these
@@ -44,7 +58,7 @@ for the pair kernels (``pallas_sandwich_v4.py:71``).
   and ``glm.irls_step`` uses the maxima to pick the power-of-two weight scale
   that keeps that Hessian in range.  It reads the f32 X once.
 
-The plain version of all three sandwiches is :func:`sandwich_plain`.  The
+The plain version of every sandwich is :func:`sandwich_plain`.  The
 wrappers take it only for a tensor on the CPU; for a CUDA tensor they launch
 the kernel or raise.
 """
@@ -58,14 +72,18 @@ import torch
 launches = {
     "sandwich<double>": 0, "sandwich<float>": 0,
     "sandwich_narrow<double>": 0, "sandwich_narrow<float>": 0,
-    "sandwich_mma<double>": 0,
+    "sandwich_tri<float>": 0, "sandwich_mma<double>": 0,
     "column_absmax": 0,
 }
 
-# Must match csrc/sandwich.cu, csrc/sandwich_narrow.cu and csrc/sandwich_mma.cu.
+# Must match csrc/sandwich.cu, csrc/sandwich_narrow.cu, csrc/sandwich_tri.cu
+# and csrc/sandwich_mma.cu.
 TILE = 64  # the output tile of sandwich<T> and sandwich_mma<double>
 ROWS = 32
 NARROW_MAX_K = 32
+TRI_MT = 8  # the micro-tile edge of sandwich_tri<float>
+TRI_MIN_K = 33  # the kernel is built for 5 to 22 micro-tiles a side
+TRI_MAX_K = 176  # 22 micro-tiles a side: 253 upper ones, one a thread of 256
 WIDE_MIN_K = 129  # f64 widths for the tensor cores (pallas_sandwich_v4.py:71)
 AM_COLS = 32
 AM_ROWS = 8
@@ -87,6 +105,7 @@ _KERNELS = {
     "sandwich<float>": ("sandwich", "tabmat_sandwich_f32"),
     "sandwich_narrow<double>": ("sandwich_narrow", "tabmat_sandwich_narrow_f64"),
     "sandwich_narrow<float>": ("sandwich_narrow", "tabmat_sandwich_narrow_f32"),
+    "sandwich_tri<float>": ("sandwich_tri", "tabmat_sandwich_tri_f32"),
     "sandwich_mma<double>": ("sandwich_mma", "tabmat_sandwich_mma_f64"),
     "column_absmax": ("sandwich", "tabmat_column_absmax"),
 }
@@ -113,16 +132,19 @@ def _instance(kernel: str, dtype: torch.dtype) -> str:
 def route(k: int, dtype: torch.dtype) -> str:
     """The sandwich kernel for width ``k`` and dtype (float64 or float32).
 
-    k ≤ 32 → ``sandwich_narrow<T>``; float64 and k > 128 →
-    ``sandwich_mma<double>``; otherwise ``sandwich<T>``.
+    k ≤ 32 → ``sandwich_narrow<T>``; float32 and k ≤ 176 →
+    ``sandwich_tri<float>``; float64 and k > 128 → ``sandwich_mma<double>``;
+    otherwise ``sandwich<T>``.
     """
     if dtype not in (torch.float64, torch.float32):
         raise TypeError(f"the sandwich takes float64 or float32, got {dtype}")
     if k <= NARROW_MAX_K:
         return _instance("sandwich_narrow", dtype)
-    if dtype == torch.float64 and k >= WIDE_MIN_K:
+    if dtype == torch.float32:
+        return "sandwich_tri<float>" if k <= TRI_MAX_K else "sandwich<float>"
+    if k >= WIDE_MIN_K:
         return "sandwich_mma<double>"
-    return _instance("sandwich", dtype)
+    return "sandwich<double>"
 
 
 def sandwich_plain(X: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
@@ -167,6 +189,19 @@ def narrow_plan(n: int, n_sm: int, blocks_per_sm: int):
     """Row split of ``sandwich_narrow<T>``: one block owns every entry, so
     the splits alone fill one wave of resident blocks."""
     return _split_rows(n, n_sm * blocks_per_sm, ROWS)
+
+
+def tri_plan(n: int, n_sm: int, blocks_per_sm: int):
+    """Row split of ``sandwich_tri<float>``: one block owns every upper
+    micro-tile, so the splits alone fill one wave of resident blocks."""
+    return _split_rows(n, n_sm * blocks_per_sm, ROWS)
+
+
+def tri_partial_size(k: int) -> int:
+    """Floats of one split's partial in ``sandwich_tri<float>``: 64 per
+    upper 8 × 8 micro-tile, padding included."""
+    nt = -(-k // TRI_MT)
+    return nt * (nt + 1) // 2 * TRI_MT * TRI_MT
 
 
 def absmax_plan(n: int, k: int, n_sm: int):
@@ -238,14 +273,18 @@ def _run_sandwich(name: str, X, d, out):
                 int(X.dtype == torch.float64), ctypes.byref(blocks)), source)
             _blocks_per_sm[key] = max(1, blocks.value)
         n_sm = torch.cuda.get_device_properties(X.device).multi_processor_count
+        per_split = k * k
         if source == "sandwich_narrow":
             splits, rows_per_split = narrow_plan(n, n_sm, _blocks_per_sm[key])
+        elif source == "sandwich_tri":
+            splits, rows_per_split = tri_plan(n, n_sm, _blocks_per_sm[key])
+            per_split = tri_partial_size(k)
         else:
             splits, rows_per_split = launch_plan(n, k, n_sm, _blocks_per_sm[key])
         accumulate = out is not None
         if out is None:
             out = torch.empty((k, k), dtype=X.dtype, device=X.device)
-        partial = torch.empty((splits, k, k), dtype=X.dtype, device=X.device)
+        partial = torch.empty((splits, per_split), dtype=X.dtype, device=X.device)
         _launch(lib, name, X, d.contiguous(), out, partial, n, k, splits, rows_per_split,
                 int(accumulate))
     return out
@@ -278,6 +317,15 @@ def sandwich_narrow(X: torch.Tensor, d: torch.Tensor, out=None) -> torch.Tensor:
     return _run_sandwich(_instance("sandwich_narrow", X.dtype), X, d, out)
 
 
+def sandwich_tri(X: torch.Tensor, d: torch.Tensor, out=None) -> torch.Tensor:
+    """:func:`sandwich` through ``sandwich_tri<float>`` (8 × 8 FFMA
+    micro-tiles of the upper triangle); 33 ≤ k ≤ 176, float32 only."""
+    _check(X, d, (torch.float32,))
+    if not TRI_MIN_K <= X.shape[1] <= TRI_MAX_K:
+        raise ValueError(f"sandwich_tri takes {TRI_MIN_K} <= k <= {TRI_MAX_K}, got {X.shape[1]}")
+    return _run_sandwich("sandwich_tri<float>", X, d, out)
+
+
 def sandwich_mma(X: torch.Tensor, d: torch.Tensor, out=None) -> torch.Tensor:
     """:func:`sandwich` through ``sandwich_mma<double>`` (FP64 tensor
     cores), any k; float64 only."""
@@ -288,7 +336,7 @@ def sandwich_mma(X: torch.Tensor, d: torch.Tensor, out=None) -> torch.Tensor:
 KERNEL_WRAPPERS = {
     "sandwich<double>": sandwich_tiled, "sandwich<float>": sandwich_tiled,
     "sandwich_narrow<double>": sandwich_narrow, "sandwich_narrow<float>": sandwich_narrow,
-    "sandwich_mma<double>": sandwich_mma,
+    "sandwich_tri<float>": sandwich_tri, "sandwich_mma<double>": sandwich_mma,
 }
 
 

@@ -1,4 +1,4 @@
-"""The CUDA kernels (the three sandwiches and their width dispatch, range
+"""The CUDA kernels (the four sandwiches and their width dispatch, range
 prepass, gather, segment sum, sparse segment product) against their plain
 versions, and the default device, on the card.
 
@@ -77,6 +77,26 @@ def test_narrow_kernel_matches_plain(cuda, k, dtype):
     _held_against_plain(f"sandwich_narrow<{suffix}>", sk.sandwich_narrow, X, d)
 
 
+@pytest.mark.parametrize("k", [33, 49, 50, 63, 64, 65, 100, 128, 160, 175, 176])
+def test_tri_kernel_matches_plain(cuda, k):
+    """Widths around the micro-tile edge (8), the 16-byte row (k % 4) and
+    the block's last micro-tile (176); d has zeros and negatives."""
+    X, d = _inputs(100_003, k, torch.float32, cuda, seed=k)
+    _held_against_plain("sandwich_tri<float>", sk.sandwich_tri, X, d)
+
+
+@pytest.mark.parametrize("k", [50, 160])
+@pytest.mark.parametrize("n", [1, 7, 40])
+def test_tri_kernel_few_rows(cuda, n, k):
+    """One row, a few rows, and fewer rows than one stage (51 at k = 160)."""
+    gen = torch.Generator(device=cuda).manual_seed(n + k)
+    X = torch.randn(n, k, device=cuda, generator=gen)
+    d = torch.rand(n, device=cuda, generator=gen) + 0.5
+    d[1::3] *= -1.0
+    d[2::5] = 0.0
+    _held_against_plain("sandwich_tri<float>", sk.sandwich_tri, X, d)
+
+
 @pytest.mark.parametrize("k", [129, 160, 200, 1000])
 def test_mma_kernel_matches_plain(cuda, k):
     X, d = _inputs(100_003 if k < 1000 else 20_011, k, torch.float64, cuda, seed=k)
@@ -84,7 +104,7 @@ def test_mma_kernel_matches_plain(cuda, k):
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
-@pytest.mark.parametrize("k", [1, 32, 33, 128, 129])
+@pytest.mark.parametrize("k", [1, 32, 33, 128, 129, 176, 177])
 def test_dispatch_launches_the_routed_kernel(cuda, k, dtype):
     X, d = _inputs(5_003, k, dtype, cuda, seed=k)
     name = sk.route(k, dtype)

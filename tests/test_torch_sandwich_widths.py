@@ -1,5 +1,6 @@
 """The port's sandwich at the widths of the narrow and wide exact-f64 Pallas
-kernels, and its width dispatch, against ``tabmat_tpu`` on the CPU.
+kernels and of the f32 triangle kernel, and its width dispatch, against
+``tabmat_tpu`` on the CPU.
 
 The Pallas kernels (queue B rows 4-8: ``_v5_kernel``, ``_v3_kernel``,
 ``_v3p_kernel``, ``_pairs_kernel``, ``_sliced_pairs_kernel``) run in
@@ -23,6 +24,7 @@ import jax.numpy as jnp
 import tabmat_tpu as tm
 from tabmat_tpu import glm as tpu_glm
 from tabmat_tpu.ops import ozaki, pallas_pairs
+from tabmat_tpu.ops.pallas_kernels import dense_sandwich_f32
 from tabmat_tpu.ops import pallas_sandwich_v3 as v3
 from tabmat_tpu.ops import pallas_sandwich_v5 as v5
 from tabmat_tpu.parallel.design import DeviceDesign as TpuDesign
@@ -131,15 +133,17 @@ def test_matches_pair_contractions_interpret(k, sliced):
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
-@pytest.mark.parametrize("k", [1, 32, 33, 128, 129, 10_000])
+@pytest.mark.parametrize("k", [1, 32, 33, 128, 129, 176, 177, 10_000])
 def test_route(k, dtype):
     suffix = "double" if dtype == torch.float64 else "float"
     if k <= 32:
         want = f"sandwich_narrow<{suffix}>"
-    elif k > 128 and dtype == torch.float64:
+    elif dtype == torch.float32:
+        want = "sandwich_tri<float>" if k <= 176 else "sandwich<float>"
+    elif k > 128:
         want = "sandwich_mma<double>"
     else:
-        want = f"sandwich<{suffix}>"
+        want = "sandwich<double>"
     assert sk.route(k, dtype) == want
     assert want in sk.launches and want in sk.KERNEL_WRAPPERS
 
@@ -154,18 +158,75 @@ def test_narrow_plan_fills_one_wave(n, n_sm, per_sm):
         assert splits >= 0.9 * n_sm * per_sm
 
 
+@pytest.mark.parametrize("n", [1, 100_003, 1_000_000, 4_000_000])
+@pytest.mark.parametrize("n_sm,per_sm", [(132, 2), (132, 1), (4, 1)])
+def test_tri_plan_fills_one_wave(n, n_sm, per_sm):
+    splits, rps = sk.tri_plan(n, n_sm, per_sm)
+    assert 1 <= splits <= min(n_sm * per_sm, sk.MAX_SPLITS)  # one wave, never more
+    assert (splits - 1) * rps < n <= splits * rps  # every split has rows
+    assert rps % sk.ROWS == 0
+    if n >= 100 * n_sm * per_sm * sk.ROWS:
+        assert splits >= 0.9 * n_sm * per_sm
+
+
+@pytest.mark.parametrize("k,nt", [(1, 1), (33, 5), (50, 7), (160, 20), (176, 22)])
+def test_tri_partial_size(k, nt):
+    """64 floats for each upper 8 × 8 micro-tile of an nt × nt grid; at
+    k = 176 the 253 micro-tiles still fit one 256-thread block."""
+    assert sk.tri_partial_size(k) == nt * (nt + 1) // 2 * 64
+    assert nt * (nt + 1) // 2 <= 256
+
+
+@pytest.mark.parametrize("k", [50, 160])
+def test_tri_wrapper_matches_pallas_f32_interpret(k):
+    """Row 1 at the triangle kernel's widths: the wrapper on CPU tensors is
+    the plain version, held against ``dense_sandwich_f32`` in interpret mode
+    as ``tests/test_pallas_kernels.py`` runs it.  Both are full-f32 sums in
+    other orders, each within about 1e-6 of the exact product here; 2e-5 is
+    the port's f32 limit (``chip_smoke.F32_TOL``), which a TF32 product fails."""
+    rng = np.random.default_rng(k)
+    X = rng.standard_normal((2050, k)).astype(np.float32)
+    d = (rng.random(2050) - 0.25).astype(np.float32)
+    d[::7] = 0.0
+    got = sk.sandwich_tri(torch.from_numpy(X), torch.from_numpy(d))
+    assert got.dtype == torch.float32 and torch.equal(got, sk.sandwich_plain(
+        torch.from_numpy(X), torch.from_numpy(d)))
+    want = np.asarray(dense_sandwich_f32(jnp.asarray(X), jnp.asarray(d), interpret=True))
+    assert _relerr(got.numpy(), want) <= 2e-5
+    exact = (X.astype(np.float64) * d[:, None]).T @ X.astype(np.float64)
+    assert _relerr(got.numpy(), exact) <= 2e-5
+
+
+@pytest.mark.parametrize(
+    "call,err",
+    [
+        (lambda: sk.sandwich_tri(torch.ones(4, 177), torch.ones(4)), ValueError),
+        (lambda: sk.sandwich_tri(torch.ones(4, 32), torch.ones(4)), ValueError),
+        (lambda: sk.sandwich_tri(torch.ones(4, 50, dtype=torch.float64),
+                                 torch.ones(4, dtype=torch.float64)), TypeError),
+    ],
+    ids=["too-wide", "too-narrow", "float64"],
+)
+def test_tri_wrapper_rejects(call, err):
+    with pytest.raises(err):
+        call()
+
+
 def test_route_rejects_other_dtypes():
     with pytest.raises(TypeError):
         sk.route(10, torch.float16)
 
 
 @pytest.mark.parametrize("wrapper", [sk.sandwich, sk.sandwich_tiled, sk.sandwich_narrow,
-                                     sk.sandwich_mma])
+                                     sk.sandwich_mma, sk.sandwich_tri])
 def test_wrappers_add_into_out_on_cpu(wrapper):
-    X, d = _rand(300, 20, seed=4)
-    Xt, dt = torch.tensor(X), torch.tensor(d)
+    tri = wrapper is sk.sandwich_tri  # float32, 33 <= k <= 176
+    k = 40 if tri else 20
+    X, d = _rand(300, k, seed=4)
+    dtype = torch.float32 if tri else torch.float64
+    Xt, dt = torch.tensor(X, dtype=dtype), torch.tensor(d, dtype=dtype)
     before = dict(sk.launches)
-    out = torch.ones(20, 20, dtype=torch.float64)
+    out = torch.ones(k, k, dtype=dtype)
     assert wrapper(Xt, dt, out=out) is out
     torch.testing.assert_close(out, 1 + sk.sandwich_plain(Xt, dt), rtol=0, atol=0)
     assert torch.equal(wrapper(Xt, dt), sk.sandwich_plain(Xt, dt))

@@ -57,14 +57,15 @@ def test_main_path_phase_on_cpu():
 def test_kernel_phase_on_cpu():
     smoke = _chip_smoke()
     # each sandwich kernel at a cut-down full shape and its first two widths
-    cases = {name: ((500, 12 if "narrow" in name else 40), widths[:2])
+    cases = {name: (((500, 12 if "narrow" in name else 40),), widths[:2])
              for name, (_, widths) in smoke.SANDWICH_CASES.items()}
     max_abs = smoke.phase_kernels(torch.device("cpu"), cases, 97, [(500, 5), (97, 1)])
     assert max_abs == {name: 0.0 for name in (
         "sandwich<double>", "sandwich<float>", "sandwich_narrow<double>",
-        "sandwich_narrow<float>", "sandwich_mma<double>", "column_absmax")}
-    # the kernels line lists twelve instantiations, each timed in phase 8
-    assert len(smoke.KERNELS) == 12
+        "sandwich_narrow<float>", "sandwich_tri<float>", "sandwich_mma<double>",
+        "column_absmax")}
+    # the kernels line lists thirteen instantiations, each timed in phase 8
+    assert len(smoke.KERNELS) == 13
     assert set(smoke.SANDWICH_TIMES) | {"column_absmax"} <= set(smoke.KERNELS)
 
 
@@ -77,6 +78,30 @@ def test_dense_width_paths_on_cpu():
         assert report["fit_launches"] == 0
         for beta in report["betas"].values():
             assert beta.shape == (k,) and np.all(np.isfinite(beta))
+
+
+def test_f32_matrix_phase_on_cpu(capsys):
+    """Phase 4c at cut-down rows: a float32 DenseMatrix past the triangle
+    kernel's widths, its sandwich against numpy in float64."""
+    smoke = _chip_smoke()
+    smoke.phase_f32_matrix(3000, smoke.F32_WIDE_K, device=torch.device("cpu"))
+    out = capsys.readouterr().out
+    assert out.count(" ok") == 2 and "FAIL" not in out
+
+
+def test_sandwich_tables_name_the_routed_kernels():
+    """The smoke's f32 main paths name the kernel the dispatch gives them,
+    and every kernel is held, timed and listed."""
+    from tabmat_torch.ops import sandwich_kernel as sk
+
+    smoke = _chip_smoke()
+    assert sk.route(smoke.K, torch.float32) in smoke.DENSE_KERNELS
+    assert sk.route(smoke.WIDE_K, torch.float32) in smoke.WIDE_KERNELS
+    assert sk.route(smoke.F32_WIDE_K, torch.float32) == "sandwich<float>"
+    for (k, dtype), want in smoke.ROUTES.items():
+        assert sk.route(k, getattr(torch, dtype)) == want
+    assert set(smoke.SANDWICH_CASES) == set(smoke.SANDWICH_TIMES) == set(sk.KERNEL_WRAPPERS)
+    assert set(sk.launches) <= set(smoke.KERNELS)
 
 
 def test_numpy_irls_converges_to_least_squares():
@@ -103,6 +128,41 @@ def test_profile_tool_refuses_without_cuda(monkeypatch, capsys):
     monkeypatch.setattr(sys, "argv", ["profile_irls_step.py"])
     assert tool.main() != 0
     assert capsys.readouterr().out == ""
+
+
+def _time_sandwich():
+    spec = importlib.util.spec_from_file_location("time_sandwich",
+                                                  ROOT / "tools" / "time_sandwich.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool
+
+
+def test_time_sandwich_refuses_without_cuda(monkeypatch, capsys):
+    tool = _time_sandwich()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(sys, "argv", ["time_sandwich.py", "--sass"])
+    assert tool.main() != 0
+    assert capsys.readouterr().out == ""
+
+
+def test_time_sandwich_reads_the_row_loop(monkeypatch):
+    """``--sass``: the shortest backward loop with 64 FFMAs or more, by opcode."""
+    tool = _time_sandwich()
+    body = ["        /*0110*/                   LDS.128 R4, [R2] ;"]
+    body += [f"        /*{0x120 + 16 * i:04x}*/                   FFMA R{8 + i}, R4, R5, R{8 + i} ;"
+             for i in range(64)]
+    body += ["        /*0520*/                   FMUL R6, R6, R7 ;",
+             "        /*0530*/               @!P0 BRA 0x110 ;",
+             "        /*0540*/                   BRA 0x100 ;"]
+    sass = "\n".join(["Function : _ZN4anon11tri_partialILi7EEEvPKf", *body,
+                      "Function : _ZN4anon10tri_reduceEPKf", "        /*0000*/ EXIT ;"])
+    monkeypatch.setattr(tool._build, "nvcc_path", lambda: "cuda/bin/nvcc")
+    monkeypatch.setattr(tool.subprocess, "run",
+                        lambda *a, **k: type("Done", (), {"stdout": sass})())
+    loops = tool.row_loops("lib.so")
+    assert list(loops) == ["tri_partial<7>"]
+    assert loops["tri_partial<7>"] == {"LDS": 1, "FFMA": 64, "FMUL": 1, "BRA": 1}
 
 
 def test_script_alone_fails(tmp_path):
