@@ -10,14 +10,16 @@ Phases, each printed as it runs:
 1. environment: the card's name and power limit, torch/CUDA/nvcc versions,
    TF32 off;
 2. build of the CUDA kernels from ``tabmat_torch/csrc``, one ``nvcc`` per
-   source (seven sources), all at once (seconds, ptxas registers and spills);
+   source (eight sources), all at once (seconds, ptxas registers and spills);
 3. each kernel against its plain PyTorch version on the card: each of the
-   four sandwich kernels through its own wrapper (``sandwich<double>`` at
-   1,000,000 x 50 and ``sandwich<float>`` at 400,000 x 200, both at k in
-   {1, 7, 50, 64, 100, 128, 200}; ``sandwich_narrow<T>`` at 4,000,000 x 10
-   and k in {1, 2, 5, 10, 31, 32}; ``sandwich_tri<float>`` at 1,000,000 x
-   50, 400,000 x 160 and k in {33, 50, 64, 100, 160, 176};
-   ``sandwich_mma<double>`` at 400,000 x 160 and k in {129, 160, 200, 1000}),
+   sandwich kernels through its own wrapper (``sandwich<double>``, off the
+   route, at 1,000,000 x 50 and ``sandwich<float>`` at 400,000 x 200, both
+   at k in {1, 7, 50, 64, 100, 128, 200}; ``sandwich_narrow<T>`` at
+   4,000,000 x 10 and k in {1, 2, 5, 10, 31, 32}; ``sandwich_tri<float>``
+   at 1,000,000 x 50, 400,000 x 160 and k in {33, 50, 64, 100, 160, 176};
+   ``sandwich_mma_tri<double>`` at 1,000,000 x 50, at 1, 7 and 40 rows and
+   k in {33, 50, 64, 100, 127, 128}; ``sandwich_mma<double>`` at 400,000 x
+   160 and k in {129, 160, 200, 1000}),
    with negative and zero weights, exactly symmetric and bit-identical across
    two launches, and a control that the f32 limit rejects a TF32-rounded
    product; the width dispatch at 32/33 and 128/129 (f64) and 32/33 and
@@ -36,7 +38,9 @@ Phases, each printed as it runs:
    matvec and transpose_matvec with and without active sets, standardize and
    the standardized sandwich, then ``fit_glm`` for gaussian and poisson in
    both inner precisions, each held against the same algorithm in numpy;
-   ``sandwich_tri<float>`` in the f32 steps, and no ``sandwich<float>``;
+   ``sandwich_mma_tri<double>`` in the f64 steps and ``sandwich_tri<float>``
+   in the f32 steps, and neither tiled ``sandwich<T>``; the f64 sandwich's
+   relative error against numpy on a line of its own;
 4a. the same checks on the reference bench's ``dense`` design, 4,000,000 x
    10 (``tabmat_tpu/bench/generate.py:70``), built without ``device=``: the
    narrow sandwich kernel in f64 and f32 steps, and no tiled one;
@@ -73,9 +77,10 @@ Phases, each printed as it runs:
 The launch counts are set to 0 just before each main-path phase (4 to 7)
 and read just after; each path must launch its kernels (the narrow and
 wide paths and the mixed and sparse paths' 5-column dense cell the width
-dispatch's kernels, the sparse main path both sparse products).  Any failed
-check raises, so the script exits 0 only when every check passed.  The
-last three lines are the ``kernels`` JSON object (thirteen instantiations),
+dispatch's kernels, the sparse main path both sparse products), and no
+path may launch ``sandwich<double>``.  Any failed check raises, so the
+script exits 0 only when every check passed.  The last three lines are the
+``kernels`` JSON object (fourteen instantiations),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 Without CUDA it exits non-zero and prints no result.
 """
@@ -99,21 +104,23 @@ WIDE_N, WIDE_K = 400_000, 160
 # f32 past the triangle kernel's widths: the 4c phase and the times of
 # sandwich<float>
 F32_WIDE_K = 200
-# sandwich kernel -> (its full-size shapes, the first its row in the kernels
-# line; the widths it is held at on EDGE_N rows); the tiled kernel takes any
-# width, the wrappers launch it directly
+# sandwich kernel -> (its shapes, the first the full-size one of its row in
+# the kernels line; the widths it is held at on EDGE_N rows); the tiled
+# kernel takes any width, the wrappers launch it directly
 SANDWICH_CASES = {
     "sandwich<double>": (((N, K),), (1, 7, 50, 64, 100, 128, 200)),
     "sandwich<float>": (((WIDE_N, F32_WIDE_K),), (1, 7, 50, 64, 100, 128, 200)),
     "sandwich_narrow<double>": (((NARROW_N, NARROW_K),), (1, 2, 5, 10, 31, 32)),
     "sandwich_narrow<float>": (((NARROW_N, NARROW_K),), (1, 2, 5, 10, 31, 32)),
     "sandwich_tri<float>": (((N, K), (WIDE_N, WIDE_K)), (33, 50, 64, 100, 160, 176)),
+    "sandwich_mma_tri<double>": (((N, K), (1, K), (7, 128), (40, 100)),
+                                 (33, 50, 64, 100, 127, 128)),
     "sandwich_mma<double>": (((WIDE_N, WIDE_K),), (129, 160, 200, 1000)),
 }
 # the width dispatch at its boundaries: (k, dtype name) -> kernel
 ROUTES = {
-    (32, "float64"): "sandwich_narrow<double>", (33, "float64"): "sandwich<double>",
-    (128, "float64"): "sandwich<double>", (129, "float64"): "sandwich_mma<double>",
+    (32, "float64"): "sandwich_narrow<double>", (33, "float64"): "sandwich_mma_tri<double>",
+    (128, "float64"): "sandwich_mma_tri<double>", (129, "float64"): "sandwich_mma<double>",
     (32, "float32"): "sandwich_narrow<float>", (33, "float32"): "sandwich_tri<float>",
     (176, "float32"): "sandwich_tri<float>", (177, "float32"): "sandwich<float>",
 }
@@ -141,6 +148,7 @@ N_CG = 16
 # TF32-rounded inputs (4e-4 to 5e-4) fails it, which phase 3 checks.  The
 # prepass takes the same products and maxima as its plain version: exact.
 F64_TOL = 1e-13
+TPU_F64_RELERR = 5.2e-15  # BENCH_r05.json at 1M x 50: a bar to print beside, not a limit
 F32_TOL = 2e-5
 ABSMAX_TOL = 0.0
 # beta against numpy after FIT_STEPS IRLS steps: f64 differs only by
@@ -153,10 +161,11 @@ OP_TOL = 1e-12
 # name -> (source, the Pallas kernel it replaces).  gather<T> also covers
 # the window take (pallas_window_take.py:109, :130), segsum<T> both one-hot
 # segment sums (pallas_segsum.py:97, pallas_segsum_bucketed.py:64);
-# sandwich<double> also the unpacked v5 and v3 kernels
-# (pallas_sandwich_v5.py:99, pallas_sandwich_v3.py:135), sandwich_narrow<T>
-# the packed modes of v4 and v5, sandwich_mma<double> also the unsliced
-# pair kernel (pallas_pairs.py:29).
+# sandwich_mma_tri<double> also the unpacked v5 and v3 kernels
+# (pallas_sandwich_v5.py:99, pallas_sandwich_v3.py:135), which
+# sandwich<double> replaced until it left the route; sandwich_narrow<T> the
+# packed modes of v4 and v5, sandwich_mma<double> also the unsliced pair
+# kernel (pallas_pairs.py:29).
 KERNELS = {
     "sandwich<double>": ("tabmat_torch/csrc/sandwich.cu", "tabmat_tpu/ops/pallas_sandwich_v4.py:141"),
     "sandwich<float>": ("tabmat_torch/csrc/sandwich.cu", "tabmat_tpu/ops/pallas_kernels.py:34"),
@@ -168,6 +177,8 @@ KERNELS = {
                             "tabmat_tpu/ops/pallas_kernels.py:34"),
     "sandwich_mma<double>": ("tabmat_torch/csrc/sandwich_mma.cu",
                              "tabmat_tpu/ops/pallas_pairs.py:103"),
+    "sandwich_mma_tri<double>": ("tabmat_torch/csrc/sandwich_mma_tri.cu",
+                                 "tabmat_tpu/ops/pallas_sandwich_v4.py:141"),
     "column_absmax": ("tabmat_torch/csrc/sandwich.cu", "tabmat_tpu/ops/pallas_sandwich_v4.py:491"),
     "gather<double>": ("tabmat_torch/csrc/gather.cu", "tabmat_tpu/ops/pallas_gather.py:110"),
     "gather<float>": ("tabmat_torch/csrc/gather.cu", "tabmat_tpu/ops/pallas_gather.py:89"),
@@ -176,7 +187,7 @@ KERNELS = {
     "spmv<double>": ("tabmat_torch/csrc/spmv.cu", "tabmat_tpu/ops/pallas_tmv_fused.py:179"),
     "spmv<float>": ("tabmat_torch/csrc/spmv.cu", "tabmat_tpu/ops/pallas_tmv_fused.py:179"),
 }
-DENSE_KERNELS = ("sandwich<double>", "sandwich_tri<float>", "column_absmax")
+DENSE_KERNELS = ("sandwich_mma_tri<double>", "sandwich_tri<float>", "column_absmax")
 NARROW_KERNELS = ("sandwich_narrow<double>", "sandwich_narrow<float>", "column_absmax")
 WIDE_KERNELS = ("sandwich_mma<double>", "sandwich_tri<float>", "column_absmax")
 SPARSE_KERNELS = ("spmv<double>", "spmv<float>")
@@ -312,7 +323,7 @@ def phase_kernels(device, cases=None, edge_n: int = EDGE_N, absmax_shapes=None) 
         for rows, cols in list(fulls) + [(edge_n, kk) for kk in widths]:
             X = torch.randn(rows, cols, device=device, dtype=dtype, generator=gen)
             d = torch.randn(rows, device=device, dtype=dtype, generator=gen)
-            d[::5] = 0.0  # zeros, as masked rows arrive
+            d[1::5] = 0.0  # zeros, as masked rows arrive
             before = sk.launches[name]
             S, again = wrapper(X, d), wrapper(X, d)
             P = sk.sandwich_plain(X, d)
@@ -666,7 +677,10 @@ def phase_main_path(device, n: int, k: int, fit_steps: int = FIT_STEPS, seed: in
         raise AssertionError(f"a DenseMatrix built without device= landed on {dm.device}")
     d = torch.as_tensor(d_np, device=dm.device)
 
-    _check("sandwich relerr", _relerr(dm.sandwich(d).cpu(), (X_np * d_np[:, None]).T @ X_np), F64_TOL)
+    relerr = _relerr(dm.sandwich(d).cpu(), (X_np * d_np[:, None]).T @ X_np)
+    print(f"  f64 sandwich relerr vs numpy at {n}x{k}: {relerr:.3e} (the TPU record "
+          f"BENCH_r05.json: {TPU_F64_RELERR:.1e}; limit {F64_TOL:.0e})")
+    _check("sandwich relerr", relerr, F64_TOL)
     rows = np.sort(rng.choice(n, n // 2, replace=False))
     cols = np.array([k - 1, 0, k // 2])
     sub = X_np[rows][:, cols]
@@ -912,6 +926,7 @@ SANDWICH_TIMES = {
     "sandwich_narrow<double>": ((NARROW_N, NARROW_K), (N, MIX_KD)),
     "sandwich_narrow<float>": ((NARROW_N, NARROW_K), (N, MIX_KD)),
     "sandwich_tri<float>": ((N, K), (WIDE_N, WIDE_K)),
+    "sandwich_mma_tri<double>": ((N, K),),
     "sandwich_mma<double>": ((WIDE_N, WIDE_K),),
 }
 
@@ -1123,14 +1138,14 @@ def main() -> int:
         return result
 
     wider = ("sandwich<double>", "sandwich<float>", "sandwich_tri<float>",
-             "sandwich_mma<double>")
+             "sandwich_mma<double>", "sandwich_mma_tri<double>")
     run_main_path("dense main path", phase_main_path, device, N, K, must_launch=DENSE_KERNELS,
-                  must_not=("sandwich<float>",))
+                  must_not=("sandwich<double>", "sandwich<float>"))
     run_main_path("narrow dense path", phase_main_path, None, NARROW_N, NARROW_K,
                   label="[4a] narrow dense path", must_launch=NARROW_KERNELS, must_not=wider)
     run_main_path("wide dense path", phase_main_path, None, WIDE_N, WIDE_K,
                   label="[4b] wide dense path", must_launch=WIDE_KERNELS,
-                  must_not=("sandwich<double>", "sandwich<float>"))
+                  must_not=("sandwich<double>", "sandwich<float>", "sandwich_mma_tri<double>"))
     run_main_path("float32 matrix path", phase_f32_matrix, WIDE_N, F32_WIDE_K,
                   must_launch=("sandwich<float>",), must_not=("sandwich_tri<float>",))
     mixed = run_main_path("mixed main path", phase_mixed_path, N, MIX_KD, MIX_LEVELS,
@@ -1142,6 +1157,9 @@ def main() -> int:
     sparse = run_main_path("sparse main path", phase_mixed_path, N, MIX_KD, MIX_LEVELS,
                            sparse=block, fit_steps=SPARSE_FIT_STEPS,
                            must_launch=SPARSE_KERNELS + NARROW_KERNELS[:2])
+    # the tiled f64 kernel is off every route: phase 3 holds it, no path runs it
+    if any(counts["sandwich<double>"] for counts in main_launches):
+        raise AssertionError("a main path launched sandwich<double>, which no route names")
 
     times = phase_times(device, N, K, card, mixed, sparse, cases, wide)
     kernels = []

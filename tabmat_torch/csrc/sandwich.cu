@@ -7,11 +7,12 @@
 //     (full f32, HIGHEST) by sandwich_partial/sandwich_reduce.  Hopper has
 //     native FP64, so one template computes the product directly in the
 //     input type.  f32 uses plain FFMA (never TF32), as the Pallas kernel
-//     used Precision.HIGHEST.  The wrapper's width dispatch sends it the
-//     middle widths, 33 <= k <= 128 in f64 and k > 32 in f32, where it
-//     also stands for the unpacked v5 and v3 kernels
-//     (pallas_sandwich_v5.py:_v5_kernel, pallas_sandwich_v3.py:_v3_kernel);
-//     sandwich_narrow.cu takes k <= 32, sandwich_mma.cu f64 k > 128;
+//     used Precision.HIGHEST.  The wrapper's width dispatch sends it f32
+//     k > 176 only; in f64 it is off the route, reached only through
+//     sandwich_kernel.sandwich_tiled (the yardstick of the f64 triangle
+//     kernel).  sandwich_narrow.cu takes k <= 32, sandwich_tri.cu f32
+//     33 <= k <= 176, sandwich_mma_tri.cu f64 33 <= k <= 128 (and with it
+//     the unpacked v5 and v3 kernels), sandwich_mma.cu f64 k > 128;
 //   - tabmat_tpu/ops/pallas_sandwich_v4.py:_max_kernel by column_absmax.
 //     On the TPU it picks the plane exponents that keep the scaled values in
 //     range.  The port's narrow format is the f32 Hessian of the default

@@ -4,8 +4,8 @@ dispatch, the range prepass, and their plain versions.
 Kernels, one wrapper each, chosen by :func:`route` on the width k and the
 dtype:
 
-- float64: k ≤ 32 ``sandwich_narrow<double>``, 33-128 ``sandwich<double>``,
-  k > 128 ``sandwich_mma<double>``;
+- float64: k ≤ 32 ``sandwich_narrow<double>``, 33-128
+  ``sandwich_mma_tri<double>``, k > 128 ``sandwich_mma<double>``;
 - float32: k ≤ 32 ``sandwich_narrow<float>``, 33-176 ``sandwich_tri<float>``,
   k > 176 ``sandwich<float>``.
 
@@ -25,14 +25,20 @@ dtype:
   thread), rows staged at a padded pitch with three cp.async stages, four
   16-byte shared loads for 64 FFMAs.  Bound by bytes at 1M × 50 and by
   operations at 400k × 160.
-- ``sandwich<T>`` (``csrc/sandwich.cu``, 33 ≤ k ≤ 128 in f64, k > 176 in
-  f32): replaces ``pallas_sandwich_v4.py:_v4_kernel`` (exact f64 through
-  int8 anti-diagonal plane dots), the unpacked ``_v5_kernel`` and
-  ``pallas_sandwich_v3.py:_v3_kernel`` (k ≤ 100), and in f32
+- ``sandwich_mma_tri<double>`` (``csrc/sandwich_mma_tri.cu``, f64
+  33 ≤ k ≤ 128): replaces ``pallas_sandwich_v4.py:_v4_kernel`` (exact f64
+  through int8 anti-diagonal plane dots), the unpacked
+  ``pallas_sandwich_v5.py:_v5_kernel`` and ``pallas_sandwich_v3.py:_v3_kernel``
+  at these widths.  A block owns the upper triangle in ``m16n8k8``
+  accumulator tiles on the FP64 tensor cores (16 tiles at k = 50, 72 at
+  128), each warp two bands of row blocks; the A fragments are the B
+  fragments times the weights, so X is staged once, by three cp.async
+  stages at a conflict-free pitch.  Bound by bytes at 1M × 50 (0.122 ms)
+  and nearly level at 1M × 128 (0.308 ms of bytes, 0.275 of padded MMAs).
+- ``sandwich<T>`` (``csrc/sandwich.cu``, f32 k > 176; f64 only through
+  :func:`sandwich_tiled`, off the route since the triangle kernel): replaces
   ``pallas_kernels.py:_sandwich_kernel`` past 176.  A 64 × 64 FFMA tile per
-  upper tile pair, X read once per column tile (once in all for k ≤ 64):
-  at 1M × 50 f64 about 6 FLOP/byte, just under the FP64 FFMA ridge of about
-  10 (34 TFLOP/s over 3.35 TB/s, NVIDIA's data sheet).
+  upper tile pair, X read once per column tile (once in all for k ≤ 64).
 - ``sandwich_mma<double>`` (``csrc/sandwich_mma.cu``, f64 k > 128):
   replaces ``tabmat_tpu/ops/pallas_pairs.py:_pairs_kernel`` and
   ``:_sliced_pairs_kernel`` (the slice-pair contractions whose f64
@@ -73,11 +79,11 @@ launches = {
     "sandwich<double>": 0, "sandwich<float>": 0,
     "sandwich_narrow<double>": 0, "sandwich_narrow<float>": 0,
     "sandwich_tri<float>": 0, "sandwich_mma<double>": 0,
-    "column_absmax": 0,
+    "sandwich_mma_tri<double>": 0, "column_absmax": 0,
 }
 
-# Must match csrc/sandwich.cu, csrc/sandwich_narrow.cu, csrc/sandwich_tri.cu
-# and csrc/sandwich_mma.cu.
+# Must match csrc/sandwich.cu, csrc/sandwich_narrow.cu, csrc/sandwich_tri.cu,
+# csrc/sandwich_mma.cu and csrc/sandwich_mma_tri.cu.
 TILE = 64  # the output tile of sandwich<T> and sandwich_mma<double>
 ROWS = 32
 NARROW_MAX_K = 32
@@ -85,6 +91,9 @@ TRI_MT = 8  # the micro-tile edge of sandwich_tri<float>
 TRI_MIN_K = 33  # the kernel is built for 5 to 22 micro-tiles a side
 TRI_MAX_K = 176  # 22 micro-tiles a side: 253 upper ones, one a thread of 256
 WIDE_MIN_K = 129  # f64 widths for the tensor cores (pallas_sandwich_v4.py:71)
+MMA_TRI_MIN_K = 33  # sandwich_mma_tri<double>: 5 to 16 column blocks of 8
+MMA_TRI_MAX_K = WIDE_MIN_K - 1
+MMA_FRAG = 128  # doubles of one m16n8k8 accumulator tile: 32 lanes x 4
 AM_COLS = 32
 AM_ROWS = 8
 MAX_SPLITS = 65535  # gridDim.y limit
@@ -107,6 +116,7 @@ _KERNELS = {
     "sandwich_narrow<float>": ("sandwich_narrow", "tabmat_sandwich_narrow_f32"),
     "sandwich_tri<float>": ("sandwich_tri", "tabmat_sandwich_tri_f32"),
     "sandwich_mma<double>": ("sandwich_mma", "tabmat_sandwich_mma_f64"),
+    "sandwich_mma_tri<double>": ("sandwich_mma_tri", "tabmat_sandwich_mma_tri_f64"),
     "column_absmax": ("sandwich", "tabmat_column_absmax"),
 }
 _libs: dict = {}
@@ -132,9 +142,9 @@ def _instance(kernel: str, dtype: torch.dtype) -> str:
 def route(k: int, dtype: torch.dtype) -> str:
     """The sandwich kernel for width ``k`` and dtype (float64 or float32).
 
-    k ≤ 32 → ``sandwich_narrow<T>``; float32 and k ≤ 176 →
-    ``sandwich_tri<float>``; float64 and k > 128 → ``sandwich_mma<double>``;
-    otherwise ``sandwich<T>``.
+    k ≤ 32 → ``sandwich_narrow<T>``; float32: k ≤ 176 →
+    ``sandwich_tri<float>``, wider ``sandwich<float>``; float64: k ≤ 128 →
+    ``sandwich_mma_tri<double>``, wider ``sandwich_mma<double>``.
     """
     if dtype not in (torch.float64, torch.float32):
         raise TypeError(f"the sandwich takes float64 or float32, got {dtype}")
@@ -142,9 +152,7 @@ def route(k: int, dtype: torch.dtype) -> str:
         return _instance("sandwich_narrow", dtype)
     if dtype == torch.float32:
         return "sandwich_tri<float>" if k <= TRI_MAX_K else "sandwich<float>"
-    if k >= WIDE_MIN_K:
-        return "sandwich_mma<double>"
-    return "sandwich<double>"
+    return "sandwich_mma<double>" if k >= WIDE_MIN_K else "sandwich_mma_tri<double>"
 
 
 def sandwich_plain(X: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
@@ -192,8 +200,9 @@ def narrow_plan(n: int, n_sm: int, blocks_per_sm: int):
 
 
 def tri_plan(n: int, n_sm: int, blocks_per_sm: int):
-    """Row split of ``sandwich_tri<float>``: one block owns every upper
-    micro-tile, so the splits alone fill one wave of resident blocks."""
+    """Row split of the triangle kernels ``sandwich_tri<float>`` and
+    ``sandwich_mma_tri<double>``: one block owns every upper tile, so the
+    splits alone fill one wave of resident blocks."""
     return _split_rows(n, n_sm * blocks_per_sm, ROWS)
 
 
@@ -202,6 +211,21 @@ def tri_partial_size(k: int) -> int:
     upper 8 × 8 micro-tile, padding included."""
     nt = -(-k // TRI_MT)
     return nt * (nt + 1) // 2 * TRI_MT * TRI_MT
+
+
+def mma_tri_tiles(k: int) -> int:
+    """The upper ``m16n8k8`` tiles (16 rows by 8 columns) of a k × k S:
+    tile (r, c) is kept where c ≥ 2r, with C = ⌈k/8⌉ column blocks and
+    R = ⌈C/2⌉ row blocks."""
+    c_blocks = -(-k // 8)
+    r_blocks = -(-c_blocks // 2)
+    return r_blocks * c_blocks - r_blocks * (r_blocks - 1)
+
+
+def mma_tri_partial_size(k: int) -> int:
+    """Doubles of one split's partial in ``sandwich_mma_tri<double>``: 128
+    per upper ``m16n8k8`` tile, padding and lower halves included."""
+    return mma_tri_tiles(k) * MMA_FRAG
 
 
 def absmax_plan(n: int, k: int, n_sm: int):
@@ -276,9 +300,9 @@ def _run_sandwich(name: str, X, d, out):
         per_split = k * k
         if source == "sandwich_narrow":
             splits, rows_per_split = narrow_plan(n, n_sm, _blocks_per_sm[key])
-        elif source == "sandwich_tri":
+        elif source in ("sandwich_tri", "sandwich_mma_tri"):
             splits, rows_per_split = tri_plan(n, n_sm, _blocks_per_sm[key])
-            per_split = tri_partial_size(k)
+            per_split = (tri_partial_size if source == "sandwich_tri" else mma_tri_partial_size)(k)
         else:
             splits, rows_per_split = launch_plan(n, k, n_sm, _blocks_per_sm[key])
         accumulate = out is not None
@@ -304,7 +328,8 @@ def sandwich(X: torch.Tensor, d: torch.Tensor, out=None) -> torch.Tensor:
 
 
 def sandwich_tiled(X: torch.Tensor, d: torch.Tensor, out=None) -> torch.Tensor:
-    """:func:`sandwich` through ``sandwich<T>`` (64 × 64 FFMA tiles), any k."""
+    """:func:`sandwich` through ``sandwich<T>`` (64 × 64 FFMA tiles), any k;
+    in float64 off the route, kept as the yardstick of the triangle kernel."""
     _check(X, d, (torch.float64, torch.float32))
     return _run_sandwich(_instance("sandwich", X.dtype), X, d, out)
 
@@ -332,11 +357,23 @@ def sandwich_mma(X: torch.Tensor, d: torch.Tensor, out=None) -> torch.Tensor:
     return _run_sandwich("sandwich_mma<double>", X, d, out)
 
 
+def sandwich_mma_tri(X: torch.Tensor, d: torch.Tensor, out=None) -> torch.Tensor:
+    """:func:`sandwich` through ``sandwich_mma_tri<double>`` (the upper
+    triangle in ``m16n8k8`` FP64 tensor-core tiles); 33 ≤ k ≤ 128, float64
+    only."""
+    _check(X, d, (torch.float64,))
+    if not MMA_TRI_MIN_K <= X.shape[1] <= MMA_TRI_MAX_K:
+        raise ValueError(f"sandwich_mma_tri takes {MMA_TRI_MIN_K} <= k <= {MMA_TRI_MAX_K}, "
+                         f"got {X.shape[1]}")
+    return _run_sandwich("sandwich_mma_tri<double>", X, d, out)
+
+
 # the wrapper of each sandwich kernel, for callers that name the kernel
 KERNEL_WRAPPERS = {
     "sandwich<double>": sandwich_tiled, "sandwich<float>": sandwich_tiled,
     "sandwich_narrow<double>": sandwich_narrow, "sandwich_narrow<float>": sandwich_narrow,
     "sandwich_tri<float>": sandwich_tri, "sandwich_mma<double>": sandwich_mma,
+    "sandwich_mma_tri<double>": sandwich_mma_tri,
 }
 
 

@@ -1,4 +1,4 @@
-"""The CUDA kernels (the four sandwiches and their width dispatch, range
+"""The CUDA kernels (the sandwiches and their width dispatch, range
 prepass, gather, segment sum, sparse segment product) against their plain
 versions, and the default device, on the card.
 
@@ -95,6 +95,33 @@ def test_tri_kernel_few_rows(cuda, n, k):
     d[1::3] *= -1.0
     d[2::5] = 0.0
     _held_against_plain("sandwich_tri<float>", sk.sandwich_tri, X, d)
+
+
+@pytest.mark.parametrize("k", [33, 40, 48, 49, 50, 64, 65, 96, 100, 127, 128])
+def test_mma_tri_kernel_matches_plain(cuda, k):
+    """Widths around the 8-column and 16-row blocks, the 16-byte copy (odd
+    k), the one-group instantiations (96, 100) and the last width (128); d
+    has zeros and negatives."""
+    X, d = _inputs(100_003, k, torch.float64, cuda, seed=k)
+    _held_against_plain("sandwich_mma_tri<double>", sk.sandwich_mma_tri, X, d)
+
+
+@pytest.mark.parametrize("k", [50, 128])
+@pytest.mark.parametrize("n", [1, 7, 40])
+def test_mma_tri_kernel_few_rows(cuda, n, k):
+    """One row, a few rows, and fewer rows than one stage."""
+    gen = torch.Generator(device=cuda).manual_seed(n + k)
+    X = torch.randn(n, k, device=cuda, dtype=torch.float64, generator=gen)
+    d = torch.rand(n, device=cuda, dtype=torch.float64, generator=gen) + 0.5
+    d[1::3] *= -1.0
+    d[2::5] = 0.0
+    _held_against_plain("sandwich_mma_tri<double>", sk.sandwich_mma_tri, X, d)
+
+
+def test_mma_tri_kernel_rejects_float32(cuda):
+    X, d = _inputs(100, 50, torch.float32, cuda, seed=1)
+    with pytest.raises(TypeError):
+        sk.sandwich_mma_tri(X, d)
 
 
 @pytest.mark.parametrize("k", [129, 160, 200, 1000])

@@ -1,6 +1,6 @@
 """The port's sandwich at the widths of the narrow and wide exact-f64 Pallas
-kernels and of the f32 triangle kernel, and its width dispatch, against
-``tabmat_tpu`` on the CPU.
+kernels and of the f32 and f64 triangle kernels, and its width dispatch,
+against ``tabmat_tpu`` on the CPU.
 
 The Pallas kernels (queue B rows 4-8: ``_v5_kernel``, ``_v3_kernel``,
 ``_v3p_kernel``, ``_pairs_kernel``, ``_sliced_pairs_kernel``) run in
@@ -26,6 +26,7 @@ from tabmat_tpu import glm as tpu_glm
 from tabmat_tpu.ops import ozaki, pallas_pairs
 from tabmat_tpu.ops.pallas_kernels import dense_sandwich_f32
 from tabmat_tpu.ops import pallas_sandwich_v3 as v3
+from tabmat_tpu.ops import pallas_sandwich_v4 as v4
 from tabmat_tpu.ops import pallas_sandwich_v5 as v5
 from tabmat_tpu.parallel.design import DeviceDesign as TpuDesign
 
@@ -143,7 +144,7 @@ def test_route(k, dtype):
     elif k > 128:
         want = "sandwich_mma<double>"
     else:
-        want = "sandwich<double>"
+        want = "sandwich_mma_tri<double>"
     assert sk.route(k, dtype) == want
     assert want in sk.launches and want in sk.KERNEL_WRAPPERS
 
@@ -161,6 +162,8 @@ def test_narrow_plan_fills_one_wave(n, n_sm, per_sm):
 @pytest.mark.parametrize("n", [1, 100_003, 1_000_000, 4_000_000])
 @pytest.mark.parametrize("n_sm,per_sm", [(132, 2), (132, 1), (4, 1)])
 def test_tri_plan_fills_one_wave(n, n_sm, per_sm):
+    """The row split of both triangle kernels, ``sandwich_tri<float>`` and
+    ``sandwich_mma_tri<double>``; a split is whole k-steps of either."""
     splits, rps = sk.tri_plan(n, n_sm, per_sm)
     assert 1 <= splits <= min(n_sm * per_sm, sk.MAX_SPLITS)  # one wave, never more
     assert (splits - 1) * rps < n <= splits * rps  # every split has rows
@@ -212,16 +215,63 @@ def test_tri_wrapper_rejects(call, err):
         call()
 
 
+@pytest.mark.parametrize("k,tiles", [(33, 9), (40, 9), (48, 12), (50, 16), (64, 20), (65, 25),
+                                     (100, 49), (128, 72)])
+def test_mma_tri_partial_size(k, tiles):
+    """128 doubles for each upper m16n8k8 tile (r, c), c ≥ 2r: the tiles
+    cover every upper entry of S once, and no tile lies wholly below."""
+    assert sk.mma_tri_tiles(k) == tiles
+    assert sk.mma_tri_partial_size(k) == tiles * 128
+    c_blocks, r_blocks = -(-k // 8), -(-k // 16)
+    kept = [(r, c) for r in range(r_blocks) for c in range(c_blocks) if 8 * c + 7 >= 16 * r]
+    assert len(kept) == tiles
+    covered = {(16 * r + u, 8 * c + v) for r, c in kept for u in range(16) for v in range(8)}
+    assert {(i, j) for i in range(k) for j in range(i, k)} <= covered
+
+
+@pytest.mark.parametrize("k", [33, 50, 64, 100, 128])
+def test_mma_tri_wrapper_matches_v4_interpret(k):
+    """Rows 2, 4 and 5 at the f64 triangle kernel's widths: the wrapper on
+    CPU tensors is the plain version, held against the exact-f64 v4 kernel
+    in interpret mode as ``tests/test_torch_sandwich.py`` runs it."""
+    X, d = _rand(700, k, seed=5 * k)
+    cache = v4.build_plane_cache(jnp.asarray(X))
+    S_tpu = v4._sandwich_v4_jit(
+        cache.xsh, cache.xsl, cache.bstk, cache.exps, jnp.asarray(d),
+        cache.n, cache.k, cache.G, interpret=True,
+    )
+    Xt, dt = torch.tensor(X), torch.tensor(d)
+    got = sk.sandwich_mma_tri(Xt, dt)
+    assert got.dtype == torch.float64 and torch.equal(got, sk.sandwich_plain(Xt, dt))
+    assert _relerr(got.numpy(), S_tpu) < TOL
+
+
+@pytest.mark.parametrize(
+    "call,err",
+    [
+        (lambda: sk.sandwich_mma_tri(torch.ones(4, 32, dtype=torch.float64),
+                                     torch.ones(4, dtype=torch.float64)), ValueError),
+        (lambda: sk.sandwich_mma_tri(torch.ones(4, 129, dtype=torch.float64),
+                                     torch.ones(4, dtype=torch.float64)), ValueError),
+        (lambda: sk.sandwich_mma_tri(torch.ones(4, 50), torch.ones(4)), TypeError),
+    ],
+    ids=["too-narrow", "too-wide", "float32"],
+)
+def test_mma_tri_wrapper_rejects(call, err):
+    with pytest.raises(err):
+        call()
+
+
 def test_route_rejects_other_dtypes():
     with pytest.raises(TypeError):
         sk.route(10, torch.float16)
 
 
 @pytest.mark.parametrize("wrapper", [sk.sandwich, sk.sandwich_tiled, sk.sandwich_narrow,
-                                     sk.sandwich_mma, sk.sandwich_tri])
+                                     sk.sandwich_mma, sk.sandwich_tri, sk.sandwich_mma_tri])
 def test_wrappers_add_into_out_on_cpu(wrapper):
     tri = wrapper is sk.sandwich_tri  # float32, 33 <= k <= 176
-    k = 40 if tri else 20
+    k = 40 if wrapper in (sk.sandwich_tri, sk.sandwich_mma_tri) else 20
     X, d = _rand(300, k, seed=4)
     dtype = torch.float32 if tri else torch.float64
     Xt, dt = torch.tensor(X, dtype=dtype), torch.tensor(d, dtype=dtype)

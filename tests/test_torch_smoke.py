@@ -63,10 +63,25 @@ def test_kernel_phase_on_cpu():
     assert max_abs == {name: 0.0 for name in (
         "sandwich<double>", "sandwich<float>", "sandwich_narrow<double>",
         "sandwich_narrow<float>", "sandwich_tri<float>", "sandwich_mma<double>",
-        "column_absmax")}
-    # the kernels line lists thirteen instantiations, each timed in phase 8
-    assert len(smoke.KERNELS) == 13
+        "sandwich_mma_tri<double>", "column_absmax")}
+    # the kernels line lists fourteen instantiations, each timed in phase 8
+    assert len(smoke.KERNELS) == 14
     assert set(smoke.SANDWICH_TIMES) | {"column_absmax"} <= set(smoke.KERNELS)
+
+
+def test_kernel_phase_few_rows_on_cpu(capsys):
+    """The f64 triangle kernel's row of phase 3: its few-row shapes (one
+    row with a nonzero weight) and its widths, each against the plain
+    version within the f64 limit."""
+    smoke = _chip_smoke()
+    fulls, widths = smoke.SANDWICH_CASES["sandwich_mma_tri<double>"]
+    assert {rows for rows, _ in fulls} >= {1, 7, 40}
+    cases = {"sandwich_mma_tri<double>": (tuple((rows, k) for rows, k in fulls if rows < 100),
+                                          widths)}
+    assert smoke.phase_kernels(torch.device("cpu"), cases, 97, [(97, 1)]) == {
+        "sandwich_mma_tri<double>": 0.0, "column_absmax": 0.0}
+    out = capsys.readouterr().out
+    assert "FAIL" not in out and out.count("sandwich_mma_tri<double>") >= 9
 
 
 def test_dense_width_paths_on_cpu():
@@ -163,6 +178,40 @@ def test_time_sandwich_reads_the_row_loop(monkeypatch):
     loops = tool.row_loops("lib.so")
     assert list(loops) == ["tri_partial<7>"]
     assert loops["tri_partial<7>"] == {"LDS": 1, "FFMA": 64, "FMUL": 1, "BRA": 1}
+
+
+def test_time_sandwich_reads_the_kstep_loops(monkeypatch):
+    """``--sass``: the innermost loops with a DMMA of each ``mma_tri_partial<C>``."""
+    tool = _time_sandwich()
+    body = ["        /*0100*/                   LDS.64 R4, [R2] ;",
+            "        /*0110*/                   DMUL R6, R4, R8 ;",
+            "        /*0120*/                   DMMA.8x8x4 R10, R4, R6, R10 ;",
+            "        /*0130*/                   NOP ;",
+            "        /*0140*/               @!P0 BRA 0x100 ;",
+            "        /*0150*/                   LDS.64 R4, [R2] ;",
+            "        /*0160*/                   DMMA.8x8x4 R10, R4, R6, R10 ;",
+            "        /*0170*/               @!P1 BRA 0x150 ;",
+            "        /*0180*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;",
+            "        /*0190*/                   BRA 0x100 ;"]
+    sass = "\n".join(["Function : _ZN4anon15mma_tri_partialILi7EEEvPKd", *body,
+                      "Function : _ZN4anon11tri_partialILi7EEEvPKf", "        /*0000*/ EXIT ;"])
+    monkeypatch.setattr(tool._build, "nvcc_path", lambda: "cuda/bin/nvcc")
+    monkeypatch.setattr(tool.subprocess, "run",
+                        lambda *a, **k: type("Done", (), {"stdout": sass})())
+    loops = tool.kstep_loops("lib.so")
+    assert list(loops) == ["mma_tri_partial<7>"]
+    assert loops["mma_tri_partial<7>"] == [
+        {"LDS": 1, "DMUL": 1, "DMMA": 1, "NOP": 1, "BRA": 1}, {"LDS": 1, "DMMA": 1, "BRA": 1}]
+    assert tool.row_loops("lib.so") == {}  # no FFMA loop, and mma_tri_partial is not tri_partial
+
+
+def test_time_sandwich_diagnose_cuts_match_the_source():
+    """``--diagnose`` replaces lines of ``sandwich_mma_tri.cu`` that must be
+    there once each."""
+    tool = _time_sandwich()
+    source = (ROOT / "tabmat_torch" / "csrc" / "sandwich_mma_tri.cu").read_text()
+    for old, _ in tool.DIAGNOSE_CUTS.values():
+        assert source.count(old) == 1
 
 
 def test_script_alone_fails(tmp_path):
