@@ -10,11 +10,13 @@ Phases, each printed as it runs:
 1. environment: the card's name and power limit, torch/CUDA/nvcc versions,
    TF32 off;
 2. build of the CUDA kernels from ``tabmat_torch/csrc``, one ``nvcc`` per
-   source (eight sources), all at once (seconds, ptxas registers and spills);
+   source (nine sources), all at once (seconds, ptxas registers and spills);
 3. each kernel against its plain PyTorch version on the card: each of the
    sandwich kernels through its own wrapper (``sandwich<double>``, off the
-   route, at 1,000,000 x 50 and ``sandwich<float>`` at 400,000 x 200, both
-   at k in {1, 7, 50, 64, 100, 128, 200}; ``sandwich_narrow<T>`` at
+   route, at 1,000,000 x 50 and ``sandwich<float>``, off the route too, at
+   400,000 x 200, both at k in {1, 7, 50, 64, 100, 128, 200};
+   ``sandwich_wide<float>`` at 400,000 x 200 and k in {177, 200, 255, 256,
+   257, 1000, 1024}; ``sandwich_narrow<T>`` at
    4,000,000 x 10 and k in {1, 2, 5, 10, 31, 32}; ``sandwich_tri<float>``
    at 1,000,000 x 50, 400,000 x 160 and k in {33, 50, 64, 100, 160, 176};
    ``sandwich_mma_tri<double>`` at 1,000,000 x 50, at 1, 7 and 40 rows and
@@ -49,7 +51,10 @@ Phases, each printed as it runs:
    the FP64 tensor-core kernel in f64 steps, ``sandwich_tri<float>`` in f32;
 4c. a float32 DenseMatrix at 400,000 x 200, built without ``device=``, past
    the triangle kernel's widths: its sandwich with and without active sets
-   through ``sandwich<float>``, against numpy in float64;
+   through ``sandwich_wide<float>``, against numpy in float64;
+4d. the checks of phase 4 at 400,000 x 200 float64, built without
+   ``device=``: the FP64 tensor-core kernel in f64 steps,
+   ``sandwich_wide<float>`` in the default f32 steps;
 5. the mixed main path at 1,000,000 x (5 dense + 1000 + 1000 levels),
    built without ``device=``: DeviceDesign matvec, transpose_matvec and the
    explicit sandwich in f64 and f32 against scipy CSR, a float32
@@ -70,7 +75,8 @@ Phases, each printed as it runs:
    the one PyTorch call that computes the same function (``torch.einsum``
    for the sandwiches, cuSPARSE through ``torch.sparse_csr_tensor`` for the
    sparse product), the sandwich kernels at 1M x 50, 1M x 5, 4M x 10,
-   400k x 160, 400k x 200 and ``sparse_wide``'s panels, and one
+   400k x 160, 400k x 200, 1M x 177, 200k x 1000 and ``sparse_wide``'s
+   panels, and one
    ``irls_step`` on each path in each inner precision, with the kernel
    launches per step.
 
@@ -78,9 +84,9 @@ The launch counts are set to 0 just before each main-path phase (4 to 7)
 and read just after; each path must launch its kernels (the narrow and
 wide paths and the mixed and sparse paths' 5-column dense cell the width
 dispatch's kernels, the sparse main path both sparse products), and no
-path may launch ``sandwich<double>``.  Any failed check raises, so the
-script exits 0 only when every check passed.  The last three lines are the
-``kernels`` JSON object (fourteen instantiations),
+path may launch ``sandwich<double>`` or ``sandwich<float>``.  Any failed
+check raises, so the script exits 0 only when every check passed.  The last
+three lines are the ``kernels`` JSON object (fifteen instantiations),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 Without CUDA it exits non-zero and prints no result.
 """
@@ -101,8 +107,8 @@ NARROW_N, NARROW_K = 4_000_000, 10
 # path (b): the widest design on which the JAX package runs its slice-pair
 # kernel by default (128 < k <= 160 and n*k <= 2^26, ozaki.py:136-154)
 WIDE_N, WIDE_K = 400_000, 160
-# f32 past the triangle kernel's widths: the 4c phase and the times of
-# sandwich<float>
+# past the triangle kernel's widths: the 4c and 4d phases and the times of
+# sandwich_wide<float> and sandwich<float>
 F32_WIDE_K = 200
 # sandwich kernel -> (its shapes, the first the full-size one of its row in
 # the kernels line; the widths it is held at on EDGE_N rows); the tiled
@@ -113,6 +119,7 @@ SANDWICH_CASES = {
     "sandwich_narrow<double>": (((NARROW_N, NARROW_K),), (1, 2, 5, 10, 31, 32)),
     "sandwich_narrow<float>": (((NARROW_N, NARROW_K),), (1, 2, 5, 10, 31, 32)),
     "sandwich_tri<float>": (((N, K), (WIDE_N, WIDE_K)), (33, 50, 64, 100, 160, 176)),
+    "sandwich_wide<float>": (((WIDE_N, F32_WIDE_K),), (177, 200, 255, 256, 257, 1000, 1024)),
     "sandwich_mma_tri<double>": (((N, K), (1, K), (7, 128), (40, 100)),
                                  (33, 50, 64, 100, 127, 128)),
     "sandwich_mma<double>": (((WIDE_N, WIDE_K),), (129, 160, 200, 1000)),
@@ -122,7 +129,7 @@ ROUTES = {
     (32, "float64"): "sandwich_narrow<double>", (33, "float64"): "sandwich_mma_tri<double>",
     (128, "float64"): "sandwich_mma_tri<double>", (129, "float64"): "sandwich_mma<double>",
     (32, "float32"): "sandwich_narrow<float>", (33, "float32"): "sandwich_tri<float>",
-    (176, "float32"): "sandwich_tri<float>", (177, "float32"): "sandwich<float>",
+    (176, "float32"): "sandwich_tri<float>", (177, "float32"): "sandwich_wide<float>",
 }
 SLAB = 200  # columns of sparse_wide's S held against scipy on the host
 # the mixed design of bench.py:360-371: 5 dense columns and two 1000-level
@@ -163,7 +170,9 @@ OP_TOL = 1e-12
 # segment sums (pallas_segsum.py:97, pallas_segsum_bucketed.py:64);
 # sandwich_mma_tri<double> also the unpacked v5 and v3 kernels
 # (pallas_sandwich_v5.py:99, pallas_sandwich_v3.py:135), which
-# sandwich<double> replaced until it left the route; sandwich_narrow<T> the
+# sandwich<double> replaced until it left the route; sandwich_wide<float>
+# the f32 kernel past 176, which sandwich<float> was until it left the
+# route; sandwich_narrow<T> the
 # packed modes of v4 and v5, sandwich_mma<double> also the unsliced pair
 # kernel (pallas_pairs.py:29).
 KERNELS = {
@@ -175,6 +184,8 @@ KERNELS = {
                                "tabmat_tpu/ops/pallas_kernels.py:34"),
     "sandwich_tri<float>": ("tabmat_torch/csrc/sandwich_tri.cu",
                             "tabmat_tpu/ops/pallas_kernels.py:34"),
+    "sandwich_wide<float>": ("tabmat_torch/csrc/sandwich_wide.cu",
+                             "tabmat_tpu/ops/pallas_kernels.py:34"),
     "sandwich_mma<double>": ("tabmat_torch/csrc/sandwich_mma.cu",
                              "tabmat_tpu/ops/pallas_pairs.py:103"),
     "sandwich_mma_tri<double>": ("tabmat_torch/csrc/sandwich_mma_tri.cu",
@@ -190,6 +201,7 @@ KERNELS = {
 DENSE_KERNELS = ("sandwich_mma_tri<double>", "sandwich_tri<float>", "column_absmax")
 NARROW_KERNELS = ("sandwich_narrow<double>", "sandwich_narrow<float>", "column_absmax")
 WIDE_KERNELS = ("sandwich_mma<double>", "sandwich_tri<float>", "column_absmax")
+F32_WIDE_KERNELS = ("sandwich_mma<double>", "sandwich_wide<float>", "column_absmax")
 SPARSE_KERNELS = ("spmv<double>", "spmv<float>")
 # the mixed path's 5-column dense cell takes the narrow kernel
 MIXED_KERNELS = NARROW_KERNELS + ("gather<double>", "gather<float>", "segsum<double>",
@@ -919,10 +931,11 @@ def sandwich_bound(n: int, k: int, size: int):
 
 # sandwich kernel -> the shapes phase 8 times it at; the first is its row
 # in the kernels line (the 1M x 50 main path, path (a), path (b), the f32
-# matrix past the triangle kernel's widths)
+# steps and matrix past the triangle kernel's widths)
 SANDWICH_TIMES = {
     "sandwich<double>": ((N, K),),
     "sandwich<float>": ((WIDE_N, F32_WIDE_K),),
+    "sandwich_wide<float>": ((WIDE_N, F32_WIDE_K), (1_000_000, 177), (200_000, 1000)),
     "sandwich_narrow<double>": ((NARROW_N, NARROW_K), (N, MIX_KD)),
     "sandwich_narrow<float>": ((NARROW_N, NARROW_K), (N, MIX_KD)),
     "sandwich_tri<float>": ((N, K), (WIDE_N, WIDE_K)),
@@ -1077,7 +1090,8 @@ def phase_times(device, n: int, k: int, card: str, mixed: dict, sparse: dict,
     rng = np.random.default_rng(7)
     steps = []
     for label, (rows, cols) in (("dense", (n, k)), ("dense narrow", (NARROW_N, NARROW_K)),
-                                ("dense wide", (WIDE_N, WIDE_K))):
+                                ("dense wide", (WIDE_N, WIDE_K)),
+                                ("dense f32 wide", (WIDE_N, F32_WIDE_K))):
         X_np = rng.standard_normal((rows, cols))
         dense = DeviceDesign.from_matrix(tt.DenseMatrix(X_np))
         y_dense = torch.as_tensor(
@@ -1138,7 +1152,7 @@ def main() -> int:
         return result
 
     wider = ("sandwich<double>", "sandwich<float>", "sandwich_tri<float>",
-             "sandwich_mma<double>", "sandwich_mma_tri<double>")
+             "sandwich_wide<float>", "sandwich_mma<double>", "sandwich_mma_tri<double>")
     run_main_path("dense main path", phase_main_path, device, N, K, must_launch=DENSE_KERNELS,
                   must_not=("sandwich<double>", "sandwich<float>"))
     run_main_path("narrow dense path", phase_main_path, None, NARROW_N, NARROW_K,
@@ -1147,7 +1161,12 @@ def main() -> int:
                   label="[4b] wide dense path", must_launch=WIDE_KERNELS,
                   must_not=("sandwich<double>", "sandwich<float>", "sandwich_mma_tri<double>"))
     run_main_path("float32 matrix path", phase_f32_matrix, WIDE_N, F32_WIDE_K,
-                  must_launch=("sandwich<float>",), must_not=("sandwich_tri<float>",))
+                  must_launch=("sandwich_wide<float>",),
+                  must_not=("sandwich<float>", "sandwich_tri<float>"))
+    run_main_path("f32-wide dense path", phase_main_path, None, WIDE_N, F32_WIDE_K,
+                  label="[4d] f32-wide dense path", must_launch=F32_WIDE_KERNELS,
+                  must_not=("sandwich<double>", "sandwich<float>", "sandwich_tri<float>",
+                            "sandwich_mma_tri<double>"))
     mixed = run_main_path("mixed main path", phase_mixed_path, N, MIX_KD, MIX_LEVELS,
                           must_launch=MIXED_KERNELS, must_not=wider)
     run_main_path("standalone sparse phase", phase_sparse_standalone, designs,
@@ -1157,9 +1176,10 @@ def main() -> int:
     sparse = run_main_path("sparse main path", phase_mixed_path, N, MIX_KD, MIX_LEVELS,
                            sparse=block, fit_steps=SPARSE_FIT_STEPS,
                            must_launch=SPARSE_KERNELS + NARROW_KERNELS[:2])
-    # the tiled f64 kernel is off every route: phase 3 holds it, no path runs it
-    if any(counts["sandwich<double>"] for counts in main_launches):
-        raise AssertionError("a main path launched sandwich<double>, which no route names")
+    # the tiled kernels are off every route: phase 3 holds them, no path runs them
+    for tiled in ("sandwich<double>", "sandwich<float>"):
+        if any(counts[tiled] for counts in main_launches):
+            raise AssertionError(f"a main path launched {tiled}, which no route names")
 
     times = phase_times(device, N, K, card, mixed, sparse, cases, wide)
     kernels = []

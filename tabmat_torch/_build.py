@@ -22,8 +22,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "tabmat_torch"
 # every source of csrc/, each its own library
-SOURCES = ("sandwich", "sandwich_narrow", "sandwich_tri", "sandwich_mma", "sandwich_mma_tri",
-           "gather", "segsum", "spmv")
+SOURCES = ("sandwich", "sandwich_narrow", "sandwich_tri", "sandwich_wide", "sandwich_mma",
+           "sandwich_mma_tri", "gather", "segsum", "spmv")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

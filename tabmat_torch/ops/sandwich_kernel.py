@@ -7,7 +7,7 @@ dtype:
 - float64: k ≤ 32 ``sandwich_narrow<double>``, 33-128
   ``sandwich_mma_tri<double>``, k > 128 ``sandwich_mma<double>``;
 - float32: k ≤ 32 ``sandwich_narrow<float>``, 33-176 ``sandwich_tri<float>``,
-  k > 176 ``sandwich<float>``.
+  k > 176 ``sandwich_wide<float>``.
 
 - ``sandwich_narrow<T>`` (``csrc/sandwich_narrow.cu``, k ≤ 32, f64 and
   f32): replaces ``tabmat_tpu/ops/pallas_sandwich_v3.py:_v3p_kernel`` (k
@@ -35,10 +35,19 @@ dtype:
   fragments times the weights, so X is staged once, by three cp.async
   stages at a conflict-free pitch.  Bound by bytes at 1M × 50 (0.122 ms)
   and nearly level at 1M × 128 (0.308 ms of bytes, 0.275 of padded MMAs).
-- ``sandwich<T>`` (``csrc/sandwich.cu``, f32 k > 176; f64 only through
-  :func:`sandwich_tiled`, off the route since the triangle kernel): replaces
-  ``pallas_kernels.py:_sandwich_kernel`` past 176.  A 64 × 64 FFMA tile per
-  upper tile pair, X read once per column tile (once in all for k ≤ 64).
+- ``sandwich_wide<float>`` (``csrc/sandwich_wide.cu``, f32 k > 176):
+  replaces ``pallas_kernels.py:_sandwich_kernel`` past 176 (and the XLA
+  einsum the JAX package takes past its k ≤ 1023).  A block owns one pair
+  of 128-column tiles (the last tile the remainder) in 8 × 8 FFMA
+  micro-tiles, warps of 64 × 32 outputs that skip the products where they
+  lie past the tile or below a diagonal pair's diagonal; both strips staged
+  by three cp.async stages of 32 rows, d·x applied once a stage to the
+  staged a-strip, four 16-byte shared loads for 64 FFMAs.  Bound by
+  operations.
+- ``sandwich<T>`` (``csrc/sandwich.cu``): off the route in both dtypes,
+  reached only through :func:`sandwich_tiled`, the yardstick of the triangle
+  and wide kernels.  A 64 × 64 FFMA tile per upper tile pair, X read once
+  per column tile (once in all for k ≤ 64).
 - ``sandwich_mma<double>`` (``csrc/sandwich_mma.cu``, f64 k > 128):
   replaces ``tabmat_tpu/ops/pallas_pairs.py:_pairs_kernel`` and
   ``:_sliced_pairs_kernel`` (the slice-pair contractions whose f64
@@ -70,6 +79,7 @@ the kernel or raise.
 """
 
 import ctypes
+import functools
 
 import torch
 
@@ -78,18 +88,20 @@ import torch
 launches = {
     "sandwich<double>": 0, "sandwich<float>": 0,
     "sandwich_narrow<double>": 0, "sandwich_narrow<float>": 0,
-    "sandwich_tri<float>": 0, "sandwich_mma<double>": 0,
+    "sandwich_tri<float>": 0, "sandwich_wide<float>": 0, "sandwich_mma<double>": 0,
     "sandwich_mma_tri<double>": 0, "column_absmax": 0,
 }
 
 # Must match csrc/sandwich.cu, csrc/sandwich_narrow.cu, csrc/sandwich_tri.cu,
-# csrc/sandwich_mma.cu and csrc/sandwich_mma_tri.cu.
+# csrc/sandwich_wide.cu, csrc/sandwich_mma.cu and csrc/sandwich_mma_tri.cu.
 TILE = 64  # the output tile of sandwich<T> and sandwich_mma<double>
 ROWS = 32
 NARROW_MAX_K = 32
 TRI_MT = 8  # the micro-tile edge of sandwich_tri<float>
 TRI_MIN_K = 33  # the kernel is built for 5 to 22 micro-tiles a side
 TRI_MAX_K = 176  # 22 micro-tiles a side: 253 upper ones, one a thread of 256
+WIDE_TILE = 128  # the column tile of sandwich_wide<float>, for k > TRI_MAX_K
+WIDE_ROWS = 32  # rows of X a stage of sandwich_wide<float>
 WIDE_MIN_K = 129  # f64 widths for the tensor cores (pallas_sandwich_v4.py:71)
 MMA_TRI_MIN_K = 33  # sandwich_mma_tri<double>: 5 to 16 column blocks of 8
 MMA_TRI_MAX_K = WIDE_MIN_K - 1
@@ -103,6 +115,8 @@ _SANDWICH_ARGTYPES = [
     ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
     ctypes.c_int, ctypes.c_void_p,
 ]
+# sandwich_wide.cu takes a device table of rows a split, one a tile pair
+_WIDE_ARGTYPES = _SANDWICH_ARGTYPES[:7] + [ctypes.c_void_p] + _SANDWICH_ARGTYPES[8:]
 _ABSMAX_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
@@ -115,6 +129,7 @@ _KERNELS = {
     "sandwich_narrow<double>": ("sandwich_narrow", "tabmat_sandwich_narrow_f64"),
     "sandwich_narrow<float>": ("sandwich_narrow", "tabmat_sandwich_narrow_f32"),
     "sandwich_tri<float>": ("sandwich_tri", "tabmat_sandwich_tri_f32"),
+    "sandwich_wide<float>": ("sandwich_wide", "tabmat_sandwich_wide_f32"),
     "sandwich_mma<double>": ("sandwich_mma", "tabmat_sandwich_mma_f64"),
     "sandwich_mma_tri<double>": ("sandwich_mma_tri", "tabmat_sandwich_mma_tri_f64"),
     "column_absmax": ("sandwich", "tabmat_column_absmax"),
@@ -143,7 +158,7 @@ def route(k: int, dtype: torch.dtype) -> str:
     """The sandwich kernel for width ``k`` and dtype (float64 or float32).
 
     k ≤ 32 → ``sandwich_narrow<T>``; float32: k ≤ 176 →
-    ``sandwich_tri<float>``, wider ``sandwich<float>``; float64: k ≤ 128 →
+    ``sandwich_tri<float>``, wider ``sandwich_wide<float>``; float64: k ≤ 128 →
     ``sandwich_mma_tri<double>``, wider ``sandwich_mma<double>``.
     """
     if dtype not in (torch.float64, torch.float32):
@@ -151,7 +166,7 @@ def route(k: int, dtype: torch.dtype) -> str:
     if k <= NARROW_MAX_K:
         return _instance("sandwich_narrow", dtype)
     if dtype == torch.float32:
-        return "sandwich_tri<float>" if k <= TRI_MAX_K else "sandwich<float>"
+        return "sandwich_tri<float>" if k <= TRI_MAX_K else "sandwich_wide<float>"
     return "sandwich_mma<double>" if k >= WIDE_MIN_K else "sandwich_mma_tri<double>"
 
 
@@ -204,6 +219,92 @@ def tri_plan(n: int, n_sm: int, blocks_per_sm: int):
     ``sandwich_mma_tri<double>``: one block owns every upper tile, so the
     splits alone fill one wave of resident blocks."""
     return _split_rows(n, n_sm * blocks_per_sm, ROWS)
+
+
+def wide_plan(n: int, k: int, n_sm: int, blocks_per_sm: int):
+    """Row split of ``sandwich_wide<float>``: ``(splits, pair_rows)``.
+
+    ``pair_rows`` holds the rows of one split of each tile pair (ti ≤ tj,
+    row by row), whole stages; the kernel reads it and decides nothing of
+    the split itself.  ``splits``, the grid's second dimension, is the most
+    splits of any pair, so every pair's splits cover its rows; a pair's
+    splits past its rows write zeros.  A pair with A active warps
+    (:func:`wide_active_warps`) keeps its busiest scheduler issuing for
+    ⌈A/4⌉ warps, so a split of it holds ``sched_rows`` / ⌈A/4⌉ rows rounded
+    up to a stage (:func:`_wide_rows`) and every split keeps its busiest
+    scheduler about as long; ``sched_rows`` (:func:`_least_sched_rows`) is
+    the least that keeps the splits holding rows, summed over the pairs,
+    within one wave of ``n_sm * blocks_per_sm`` resident blocks (one split
+    each once the pairs alone fill it, as in :func:`launch_plan`).
+    """
+    return _wide_plan(max(n, 1), k, n_sm * blocks_per_sm)
+
+
+@functools.lru_cache(maxsize=256)
+def _wide_plan(n: int, k: int, wave: int):
+    costs = [-(-a // 4) for a in wide_active_warps(k)]
+    sched_rows = _least_sched_rows(n, costs, wave)
+    pair_rows = tuple(_wide_rows(sched_rows, c) for c in costs)
+    splits = max(-(-n // r) for r in pair_rows)
+    if splits > MAX_SPLITS:
+        raise ValueError(f"sandwich_wide would need {splits} row splits (at most {MAX_SPLITS})")
+    return splits, pair_rows
+
+
+def _least_sched_rows(n: int, costs: list, wave: int) -> int:
+    """The least ``sched_rows`` whose splits that hold rows, over pairs whose
+    busiest schedulers issue for ``costs`` warps, fit ``wave``."""
+
+    def blocks(sched_rows):
+        return sum(-(-n // _wide_rows(sched_rows, c)) for c in costs)
+
+    lo, hi = 1, max(costs) * -(-n // WIDE_ROWS) * WIDE_ROWS  # hi: one split a pair
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if blocks(mid) <= wave:
+            hi = mid
+        else:
+            lo = mid + 1
+    return lo
+
+
+@functools.cache
+def _on_device(values: tuple, device: torch.device) -> torch.Tensor:
+    """``values`` as an int64 tensor on ``device``, copied once a plan and
+    kept for the process's life, so that no launch on any stream reads a
+    table freed under it (a few hundred bytes a plan)."""
+    return torch.tensor(values, dtype=torch.int64, device=device)
+
+
+def _wide_rows(sched_rows: int, per_sched: int) -> int:
+    """Rows of one split of a tile pair whose busiest scheduler issues for
+    ``per_sched`` warps."""
+    return -(-sched_rows // (per_sched * WIDE_ROWS)) * WIDE_ROWS
+
+
+def wide_pairs(k: int) -> int:
+    """The upper pairs (ti ≤ tj) of ``WIDE_TILE``-column tiles of a k × k S:
+    the first-pass blocks of one split of ``sandwich_wide<float>``."""
+    nt = -(-k // WIDE_TILE)
+    return nt * (nt + 1) // 2
+
+
+def wide_active_warps(k: int) -> list:
+    """Warps of each tile pair (ti ≤ tj, row by row) of ``sandwich_wide<float>``
+    that do products: the warp tiles q = 0..7 at rows 64·(q // 4) and
+    columns 32·(q % 4) of the 128 × 128 pair that start inside the tile and
+    do not lie wholly below a diagonal pair's diagonal (as the kernel counts
+    them; it hands them to warps 0, 1, ... in order).  Only the balance of
+    :func:`wide_plan` rests on this count, not which rows are covered."""
+    nt = -(-k // WIDE_TILE)
+    counts = []
+    for ti in range(nt):
+        for tj in range(ti, nt):
+            wa, wb = min(WIDE_TILE, k - ti * WIDE_TILE), min(WIDE_TILE, k - tj * WIDE_TILE)
+            counts.append(sum(
+                r < wa and c < wb and (ti != tj or r < c + 32)
+                for r, c in ((64 * (w // 4), 32 * (w % 4)) for w in range(8))))
+    return counts
 
 
 def tri_partial_size(k: int) -> int:
@@ -297,14 +398,8 @@ def _run_sandwich(name: str, X, d, out):
                 int(X.dtype == torch.float64), ctypes.byref(blocks)), source)
             _blocks_per_sm[key] = max(1, blocks.value)
         n_sm = torch.cuda.get_device_properties(X.device).multi_processor_count
-        per_split = k * k
-        if source == "sandwich_narrow":
-            splits, rows_per_split = narrow_plan(n, n_sm, _blocks_per_sm[key])
-        elif source in ("sandwich_tri", "sandwich_mma_tri"):
-            splits, rows_per_split = tri_plan(n, n_sm, _blocks_per_sm[key])
-            per_split = (tri_partial_size if source == "sandwich_tri" else mma_tri_partial_size)(k)
-        else:
-            splits, rows_per_split = launch_plan(n, k, n_sm, _blocks_per_sm[key])
+        splits, per_split, rows_per_split = first_pass_args(
+            source, n, k, n_sm, _blocks_per_sm[key], X.device)
         accumulate = out is not None
         if out is None:
             out = torch.empty((k, k), dtype=X.dtype, device=X.device)
@@ -312,6 +407,24 @@ def _run_sandwich(name: str, X, d, out):
         _launch(lib, name, X, d.contiguous(), out, partial, n, k, splits, rows_per_split,
                 int(accumulate))
     return out
+
+
+def first_pass_args(source: str, n: int, k: int, n_sm: int, blocks_per_sm: int, device):
+    """``(splits, elements of one split's partial, the row argument)`` of
+    ``csrc/<source>.cu``'s first pass: the row argument is the rows a split,
+    or for ``sandwich_wide`` the address of its table on ``device``."""
+    if source == "sandwich_wide":
+        splits, pair_rows = wide_plan(n, k, n_sm, blocks_per_sm)
+        return splits, k * k, _on_device(pair_rows, device).data_ptr()
+    if source in ("sandwich_tri", "sandwich_mma_tri"):
+        splits, rows_per_split = tri_plan(n, n_sm, blocks_per_sm)
+        size = (tri_partial_size if source == "sandwich_tri" else mma_tri_partial_size)(k)
+        return splits, size, rows_per_split
+    if source == "sandwich_narrow":
+        splits, rows_per_split = narrow_plan(n, n_sm, blocks_per_sm)
+    else:
+        splits, rows_per_split = launch_plan(n, k, n_sm, blocks_per_sm)
+    return splits, k * k, rows_per_split
 
 
 def sandwich(X: torch.Tensor, d: torch.Tensor, out=None) -> torch.Tensor:
@@ -329,7 +442,7 @@ def sandwich(X: torch.Tensor, d: torch.Tensor, out=None) -> torch.Tensor:
 
 def sandwich_tiled(X: torch.Tensor, d: torch.Tensor, out=None) -> torch.Tensor:
     """:func:`sandwich` through ``sandwich<T>`` (64 × 64 FFMA tiles), any k;
-    in float64 off the route, kept as the yardstick of the triangle kernel."""
+    off the route, kept as the yardstick of the triangle and wide kernels."""
     _check(X, d, (torch.float64, torch.float32))
     return _run_sandwich(_instance("sandwich", X.dtype), X, d, out)
 
@@ -349,6 +462,15 @@ def sandwich_tri(X: torch.Tensor, d: torch.Tensor, out=None) -> torch.Tensor:
     if not TRI_MIN_K <= X.shape[1] <= TRI_MAX_K:
         raise ValueError(f"sandwich_tri takes {TRI_MIN_K} <= k <= {TRI_MAX_K}, got {X.shape[1]}")
     return _run_sandwich("sandwich_tri<float>", X, d, out)
+
+
+def sandwich_wide(X: torch.Tensor, d: torch.Tensor, out=None) -> torch.Tensor:
+    """:func:`sandwich` through ``sandwich_wide<float>`` (pairs of 128-column
+    tiles in 8 × 8 FFMA micro-tiles); k > 176, float32 only."""
+    _check(X, d, (torch.float32,))
+    if X.shape[1] <= TRI_MAX_K:
+        raise ValueError(f"sandwich_wide takes k > {TRI_MAX_K}, got {X.shape[1]}")
+    return _run_sandwich("sandwich_wide<float>", X, d, out)
 
 
 def sandwich_mma(X: torch.Tensor, d: torch.Tensor, out=None) -> torch.Tensor:
@@ -372,8 +494,8 @@ def sandwich_mma_tri(X: torch.Tensor, d: torch.Tensor, out=None) -> torch.Tensor
 KERNEL_WRAPPERS = {
     "sandwich<double>": sandwich_tiled, "sandwich<float>": sandwich_tiled,
     "sandwich_narrow<double>": sandwich_narrow, "sandwich_narrow<float>": sandwich_narrow,
-    "sandwich_tri<float>": sandwich_tri, "sandwich_mma<double>": sandwich_mma,
-    "sandwich_mma_tri<double>": sandwich_mma_tri,
+    "sandwich_tri<float>": sandwich_tri, "sandwich_wide<float>": sandwich_wide,
+    "sandwich_mma<double>": sandwich_mma, "sandwich_mma_tri<double>": sandwich_mma_tri,
 }
 
 
@@ -406,7 +528,8 @@ def _library(source: str):
         from .. import _build
 
         signatures = {
-            symbol: (_ABSMAX_ARGTYPES if name == "column_absmax" else _SANDWICH_ARGTYPES)
+            symbol: (_ABSMAX_ARGTYPES if name == "column_absmax" else
+                     _WIDE_ARGTYPES if src == "sandwich_wide" else _SANDWICH_ARGTYPES)
             for name, (src, symbol) in _KERNELS.items() if src == source
         }
         signatures[f"tabmat_{source}_blocks_per_sm"] = [ctypes.c_int, ctypes.c_void_p]

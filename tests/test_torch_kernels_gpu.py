@@ -97,6 +97,37 @@ def test_tri_kernel_few_rows(cuda, n, k):
     _held_against_plain("sandwich_tri<float>", sk.sandwich_tri, X, d)
 
 
+@pytest.mark.parametrize("k", [177, 178, 180, 200, 255, 256, 257, 1000, 1024])
+def test_wide_kernel_matches_plain(cuda, k):
+    """Widths around the 128-column tile, the 16-, 8- and 4-byte copies
+    (k % 4, k % 2) and a narrow last tile (177: 49 columns); d has zeros
+    and negatives."""
+    X, d = _inputs(100_003 if k < 1000 else 20_011, k, torch.float32, cuda, seed=k)
+    _held_against_plain("sandwich_wide<float>", sk.sandwich_wide, X, d)
+
+
+@pytest.mark.parametrize("k", [200, 257])
+@pytest.mark.parametrize("n", [1, 7, 40])
+def test_wide_kernel_few_rows(cuda, n, k):
+    """One row, a few rows, and fewer rows than two stages (32 rows each)."""
+    gen = torch.Generator(device=cuda).manual_seed(n + k)
+    X = torch.randn(n, k, device=cuda, generator=gen)
+    d = torch.rand(n, device=cuda, generator=gen) + 0.5
+    d[1::3] *= -1.0
+    d[2::5] = 0.0
+    _held_against_plain("sandwich_wide<float>", sk.sandwich_wide, X, d)
+
+
+def test_wide_kernel_unaligned_rows(cuda):
+    """A contiguous X at k = 256 that starts 4 bytes past a 16-byte
+    boundary: the kernel takes 4-byte copies there."""
+    X, d = _inputs(50_001, 256, torch.float32, cuda, seed=3)
+    shifted = torch.empty(X.numel() + 1, device=cuda)[1:].view(X.shape)
+    shifted.copy_(X)
+    assert shifted.data_ptr() % 16 != 0 and shifted.is_contiguous()
+    _held_against_plain("sandwich_wide<float>", sk.sandwich_wide, shifted, d)
+
+
 @pytest.mark.parametrize("k", [33, 40, 48, 49, 50, 64, 65, 96, 100, 127, 128])
 def test_mma_tri_kernel_matches_plain(cuda, k):
     """Widths around the 8-column and 16-row blocks, the 16-byte copy (odd

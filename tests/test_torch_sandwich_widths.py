@@ -1,6 +1,6 @@
 """The port's sandwich at the widths of the narrow and wide exact-f64 Pallas
-kernels and of the f32 and f64 triangle kernels, and its width dispatch,
-against ``tabmat_tpu`` on the CPU.
+kernels, of the f32 and f64 triangle kernels and of the wide f32 kernel,
+and its width dispatch, against ``tabmat_tpu`` on the CPU.
 
 The Pallas kernels (queue B rows 4-8: ``_v5_kernel``, ``_v3_kernel``,
 ``_v3p_kernel``, ``_pairs_kernel``, ``_sliced_pairs_kernel``) run in
@@ -134,13 +134,13 @@ def test_matches_pair_contractions_interpret(k, sliced):
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
-@pytest.mark.parametrize("k", [1, 32, 33, 128, 129, 176, 177, 10_000])
+@pytest.mark.parametrize("k", [1, 32, 33, 128, 129, 176, 177, 1000, 10_000])
 def test_route(k, dtype):
     suffix = "double" if dtype == torch.float64 else "float"
     if k <= 32:
         want = f"sandwich_narrow<{suffix}>"
     elif dtype == torch.float32:
-        want = "sandwich_tri<float>" if k <= 176 else "sandwich<float>"
+        want = "sandwich_tri<float>" if k <= 176 else "sandwich_wide<float>"
     elif k > 128:
         want = "sandwich_mma<double>"
     else:
@@ -215,6 +215,88 @@ def test_tri_wrapper_rejects(call, err):
         call()
 
 
+@pytest.mark.parametrize("k", [177, 200, 256, 257, 1000, 2048])
+@pytest.mark.parametrize("n", [1, 100_003, 200_000, 400_000, 1_000_000])
+@pytest.mark.parametrize("n_sm,per_sm", [(132, 2), (132, 1), (4, 1)])
+def test_wide_plan_fills_one_wave(n, k, n_sm, per_sm):
+    """The row split of ``sandwich_wide<float>``: one entry of the table a
+    tile pair; the splits that hold rows, summed over the pairs, never
+    exceed one wave (one split a pair once the pairs alone fill it); each
+    split is whole stages; the grid's splits are the most of any pair, so
+    every pair's splits cover its rows; a split keeps its busiest scheduler
+    (⌈active warps / 4⌉ warps) about as long in every pair; no smaller
+    ``sched_rows`` fits the wave."""
+    warps = sk.wide_active_warps(k)
+    assert len(warps) == sk.wide_pairs(k) and min(warps) >= 1 and max(warps) <= 8
+    costs = [-(-a // 4) for a in warps]
+    wave = n_sm * per_sm
+    splits, rows = sk.wide_plan(n, k, n_sm, per_sm)
+    sched_rows = sk._least_sched_rows(n, costs, wave)
+    assert list(rows) == [sk._wide_rows(sched_rows, c) for c in costs]
+    per_pair = [-(-n // r) for r in rows]
+    assert all(r > 0 and r % sk.WIDE_ROWS == 0 for r in rows)
+    assert splits == max(per_pair) <= sk.MAX_SPLITS
+    assert all(splits * r >= n for r in rows)
+    assert sum(per_pair) <= wave or set(per_pair) == {1}
+    if sum(per_pair) <= wave and sched_rows > 1:  # the least sched_rows that fits
+        fewer = [-(-n // sk._wide_rows(sched_rows - 1, c)) for c in costs]
+        assert sum(fewer) > wave
+    for c, r in zip(costs, rows):  # a split's busiest scheduler: sched_rows, within a stage
+        assert sched_rows <= c * r < sched_rows + c * sk.WIDE_ROWS
+
+
+@pytest.mark.parametrize("k,warps", [(177, [6, 4, 2]), (200, [6, 6, 4]), (256, [6, 8, 6]),
+                                     (257, [6, 8, 2, 6, 2, 1])])
+def test_wide_active_warps(k, warps):
+    """The warp tiles (64 rows × 32 columns) of each 128-column tile pair
+    that start inside it and reach a diagonal pair's diagonal."""
+    assert sk.wide_active_warps(k) == warps
+    assert sk.wide_active_warps(1000).count(8) == 28
+
+
+@pytest.mark.parametrize("k,pairs", [(177, 3), (200, 3), (256, 3), (257, 6), (1000, 36),
+                                     (2048, 136)])
+def test_wide_pairs(k, pairs):
+    """Upper pairs of 128-column tiles, the last tile the remainder."""
+    assert sk.wide_pairs(k) == pairs
+    nt = -(-k // sk.WIDE_TILE)
+    assert (nt - 1) * sk.WIDE_TILE < k <= nt * sk.WIDE_TILE
+
+
+@pytest.mark.parametrize("k", [200, 257])
+def test_wide_wrapper_matches_pallas_f32_interpret(k):
+    """Row 1 past the triangle kernel's widths: the wrapper on CPU tensors
+    is the plain version, held against ``dense_sandwich_f32`` in interpret
+    mode within the port's f32 limit (2e-5, ``chip_smoke.F32_TOL``), and
+    against the exact product."""
+    rng = np.random.default_rng(k)
+    X = rng.standard_normal((2050, k)).astype(np.float32)
+    d = (rng.random(2050) - 0.25).astype(np.float32)
+    d[::7] = 0.0
+    Xt, dt = torch.from_numpy(X), torch.from_numpy(d)
+    got = sk.sandwich_wide(Xt, dt)
+    assert got.dtype == torch.float32 and torch.equal(got, sk.sandwich_plain(Xt, dt))
+    want = np.asarray(dense_sandwich_f32(jnp.asarray(X), jnp.asarray(d), interpret=True))
+    assert _relerr(got.numpy(), want) <= 2e-5
+    exact = (X.astype(np.float64) * d[:, None]).T @ X.astype(np.float64)
+    assert _relerr(got.numpy(), exact) <= 2e-5
+
+
+@pytest.mark.parametrize(
+    "call,err",
+    [
+        (lambda: sk.sandwich_wide(torch.ones(4, 176), torch.ones(4)), ValueError),
+        (lambda: sk.sandwich_wide(torch.ones(4, 32), torch.ones(4)), ValueError),
+        (lambda: sk.sandwich_wide(torch.ones(4, 200, dtype=torch.float64),
+                                  torch.ones(4, dtype=torch.float64)), TypeError),
+    ],
+    ids=["too-narrow", "narrow", "float64"],
+)
+def test_wide_wrapper_rejects(call, err):
+    with pytest.raises(err):
+        call()
+
+
 @pytest.mark.parametrize("k,tiles", [(33, 9), (40, 9), (48, 12), (50, 16), (64, 20), (65, 25),
                                      (100, 49), (128, 72)])
 def test_mma_tri_partial_size(k, tiles):
@@ -268,12 +350,13 @@ def test_route_rejects_other_dtypes():
 
 
 @pytest.mark.parametrize("wrapper", [sk.sandwich, sk.sandwich_tiled, sk.sandwich_narrow,
-                                     sk.sandwich_mma, sk.sandwich_tri, sk.sandwich_mma_tri])
+                                     sk.sandwich_mma, sk.sandwich_tri, sk.sandwich_mma_tri,
+                                     sk.sandwich_wide])
 def test_wrappers_add_into_out_on_cpu(wrapper):
-    tri = wrapper is sk.sandwich_tri  # float32, 33 <= k <= 176
-    k = 40 if wrapper in (sk.sandwich_tri, sk.sandwich_mma_tri) else 20
+    f32 = wrapper in (sk.sandwich_tri, sk.sandwich_wide)  # float32 only
+    k = {sk.sandwich_tri: 40, sk.sandwich_mma_tri: 40, sk.sandwich_wide: 180}.get(wrapper, 20)
     X, d = _rand(300, k, seed=4)
-    dtype = torch.float32 if tri else torch.float64
+    dtype = torch.float32 if f32 else torch.float64
     Xt, dt = torch.tensor(X, dtype=dtype), torch.tensor(d, dtype=dtype)
     before = dict(sk.launches)
     out = torch.ones(k, k, dtype=dtype)
@@ -293,8 +376,14 @@ def test_wrappers_add_into_out_on_cpu(wrapper):
                              out=torch.zeros(3, 4, dtype=torch.float64)), ValueError),
         (lambda: sk.sandwich(torch.ones(4, 3, dtype=torch.float64), torch.ones(4, dtype=torch.float64),
                              out=torch.zeros(3, 3)), ValueError),
+        (lambda: sk.sandwich_wide(torch.ones(4, 100), torch.ones(4)), ValueError),
+        (lambda: sk.sandwich_wide(torch.ones(4, 300, dtype=torch.float64),
+                                  torch.ones(4, dtype=torch.float64)), TypeError),
+        (lambda: sk.sandwich_wide(torch.ones(4, 200), torch.ones(4), out=torch.zeros(200, 200,
+                                  dtype=torch.float64)), ValueError),
     ],
-    ids=["narrow-too-wide", "mma-f32", "out-shape", "out-dtype"],
+    ids=["narrow-too-wide", "mma-f32", "out-shape", "out-dtype", "wide-too-narrow", "wide-f64",
+         "wide-out-dtype"],
 )
 def test_wrappers_reject(call, err):
     with pytest.raises(err):
@@ -327,11 +416,12 @@ def test_dense_matrix_matches_reference(k):
     assert _relerr(std_port.sandwich(w), std_ref.sandwich(w)) < 1e-12
 
 
-@pytest.mark.parametrize("inner", ["float64", "float32"])
-@pytest.mark.parametrize("k", [10, 160])
+@pytest.mark.parametrize("k,inner", [(10, "float64"), (10, "float32"), (160, "float64"),
+                                     (160, "float32"), (200, "float32")])
 def test_design_and_fit_match_reference(k, inner):
     """The design's explicit sandwich, one IRLS step and a short fit, with CG
-    run to k iterations so that the f32 solves converge (ROADMAP C)."""
+    run to k iterations so that the f32 solves converge (ROADMAP C).  At
+    k = 200 the default f32 step's Hessian is the wide f32 kernel's."""
     X, y, w, rng = _problem(1500, k, seed=3 * k)
     ref = tm.DenseMatrix(X)
     ref_design, port_design = TpuDesign.from_matrix(ref), DeviceDesign.from_matrix(

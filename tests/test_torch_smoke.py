@@ -57,15 +57,16 @@ def test_main_path_phase_on_cpu():
 def test_kernel_phase_on_cpu():
     smoke = _chip_smoke()
     # each sandwich kernel at a cut-down full shape and its first two widths
-    cases = {name: (((500, 12 if "narrow" in name else 40),), widths[:2])
+    cases = {name: (((500, 12 if "narrow" in name else 200 if "wide" in name else 40),),
+                    widths[:2])
              for name, (_, widths) in smoke.SANDWICH_CASES.items()}
     max_abs = smoke.phase_kernels(torch.device("cpu"), cases, 97, [(500, 5), (97, 1)])
     assert max_abs == {name: 0.0 for name in (
         "sandwich<double>", "sandwich<float>", "sandwich_narrow<double>",
-        "sandwich_narrow<float>", "sandwich_tri<float>", "sandwich_mma<double>",
-        "sandwich_mma_tri<double>", "column_absmax")}
-    # the kernels line lists fourteen instantiations, each timed in phase 8
-    assert len(smoke.KERNELS) == 14
+        "sandwich_narrow<float>", "sandwich_tri<float>", "sandwich_wide<float>",
+        "sandwich_mma<double>", "sandwich_mma_tri<double>", "column_absmax")}
+    # the kernels line lists fifteen instantiations, each timed in phase 8
+    assert len(smoke.KERNELS) == 15
     assert set(smoke.SANDWICH_TIMES) | {"column_absmax"} <= set(smoke.KERNELS)
 
 
@@ -95,6 +96,17 @@ def test_dense_width_paths_on_cpu():
             assert beta.shape == (k,) and np.all(np.isfinite(beta))
 
 
+def test_f32_wide_dense_path_on_cpu():
+    """Phase 4d at cut-down rows: the dense path past the f32 triangle
+    kernel's widths, through the public API against numpy."""
+    smoke = _chip_smoke()
+    report = smoke.phase_main_path(torch.device("cpu"), n=3000, k=smoke.F32_WIDE_K, fit_steps=2,
+                                   label="[4d] cut down")
+    assert report["fit_launches"] == 0
+    for beta in report["betas"].values():
+        assert beta.shape == (smoke.F32_WIDE_K,) and np.all(np.isfinite(beta))
+
+
 def test_f32_matrix_phase_on_cpu(capsys):
     """Phase 4c at cut-down rows: a float32 DenseMatrix past the triangle
     kernel's widths, its sandwich against numpy in float64."""
@@ -112,7 +124,9 @@ def test_sandwich_tables_name_the_routed_kernels():
     smoke = _chip_smoke()
     assert sk.route(smoke.K, torch.float32) in smoke.DENSE_KERNELS
     assert sk.route(smoke.WIDE_K, torch.float32) in smoke.WIDE_KERNELS
-    assert sk.route(smoke.F32_WIDE_K, torch.float32) == "sandwich<float>"
+    assert sk.route(smoke.F32_WIDE_K, torch.float32) == "sandwich_wide<float>"
+    assert sk.route(smoke.F32_WIDE_K, torch.float32) in smoke.F32_WIDE_KERNELS
+    assert sk.route(smoke.F32_WIDE_K, torch.float64) in smoke.F32_WIDE_KERNELS
     for (k, dtype), want in smoke.ROUTES.items():
         assert sk.route(k, getattr(torch, dtype)) == want
     assert set(smoke.SANDWICH_CASES) == set(smoke.SANDWICH_TIMES) == set(sk.KERNEL_WRAPPERS)
@@ -212,6 +226,36 @@ def test_time_sandwich_diagnose_cuts_match_the_source():
     source = (ROOT / "tabmat_torch" / "csrc" / "sandwich_mma_tri.cu").read_text()
     for old, _ in tool.DIAGNOSE_CUTS.values():
         assert source.count(old) == 1
+
+
+def test_time_sandwich_wide_cuts_match_the_source():
+    """``--diagnose-wide`` replaces lines of ``sandwich_wide.cu`` that must
+    be there once each; the row loop of ``wide_partial`` is read by name;
+    each diagnosis names a kernel of the port and takes its cuts."""
+    tool = _time_sandwich()
+    source = (ROOT / "tabmat_torch" / "csrc" / "sandwich_wide.cu").read_text()
+    for old, _ in tool.WIDE_CUTS.values():
+        assert source.count(old) == 1
+    assert tool.DIAGNOSES["sandwich_wide<float>"][0] is tool.WIDE_CUTS
+    assert tool.DIAGNOSES["sandwich_mma_tri<double>"][0] is tool.DIAGNOSE_CUTS
+    assert set(tool.DIAGNOSES) <= set(tool.sk.KERNEL_WRAPPERS)
+    assert {k for name, _, k in tool.CASES if name == "sandwich_wide<float>"} == {
+        200, 177, 1000, 2048}
+
+
+def test_time_sandwich_reads_the_wide_row_loop(monkeypatch):
+    """``--sass``: ``wide_partial``'s row loop (64 FFMAs, four 16-byte loads)."""
+    tool = _time_sandwich()
+    body = [f"        /*{0x100 + 16 * i:04x}*/                   LDS.128 R{4 + i}, [R2] ;"
+            for i in range(4)]
+    body += [f"        /*{0x140 + 16 * i:04x}*/                   FFMA R{8 + i}, R4, R5, R{8 + i} ;"
+             for i in range(64)]
+    body += ["        /*0540*/               @!P0 BRA 0x100 ;"]
+    sass = "\n".join(["Function : _ZN12_GLOBAL__N_112wide_partialEPKfS1_Pfxixi", *body])
+    monkeypatch.setattr(tool._build, "nvcc_path", lambda: "cuda/bin/nvcc")
+    monkeypatch.setattr(tool.subprocess, "run",
+                        lambda *a, **k: type("Done", (), {"stdout": sass})())
+    assert tool.row_loops("lib.so") == {"wide_partial": {"LDS": 4, "FFMA": 64, "BRA": 1}}
 
 
 def test_script_alone_fails(tmp_path):

@@ -3,12 +3,14 @@
 
 Run from the repository root on a machine with a card:
 
-    python3 tools/time_sandwich.py [--reps 20] [--parent-cu PATH] [--sass] [--diagnose]
+    python3 tools/time_sandwich.py [--reps 20] [--parent-cu PATH] [--sass]
+                                   [--diagnose | --diagnose-wide]
 
 It builds ``csrc/sandwich.cu``, ``csrc/sandwich_narrow.cu``,
-``csrc/sandwich_tri.cu``, ``csrc/sandwich_mma.cu`` and
-``csrc/sandwich_mma_tri.cu`` and prints what ``ptxas`` reported for each of
-their kernels (registers, shared memory, spills).  Then, for each case of
+``csrc/sandwich_tri.cu``, ``csrc/sandwich_wide.cu``, ``csrc/sandwich_mma.cu``
+and ``csrc/sandwich_mma_tri.cu`` and prints what ``ptxas`` reported for each
+of their kernels (registers, shared memory, spills), and the first-pass
+blocks an SM holds at once of the triangle and wide kernels.  Then, for each case of
 ``CASES``, it holds the kernel against ``sandwich_plain`` (relative error
 max|S - P| / max|P| within ``chip_smoke.F64_TOL`` or ``chip_smoke.F32_TOL``,
 two launches equal bit for bit, S exactly symmetric; d has zeros and
@@ -17,10 +19,13 @@ cases: ``sandwich_mma_tri<double>`` at the main path's 1M x 50 and at
 k = 33, 64, 100, 128 on 1M rows; ``sandwich_narrow<double>`` at 4M x 10 and
 ``sandwich_mma<double>`` at 400k x 160 as controls.  The f32 cases:
 ``sandwich_tri<float>`` at 1M x 50 and 400k x 160 and at k = 33, 64, 100,
-176 on 1M rows; ``sandwich<float>`` at the same two shapes, at k = 177 and
-at k = 1000; ``sandwich_narrow<float>`` at 4M x 10.  Times are CUDA events over ``--reps`` calls held back
-to back (``chip_smoke._time_ms``), in turns kernel, parent, einsum, einsum,
-parent, kernel.
+176 on 1M rows; ``sandwich<float>`` at the same two shapes;
+``sandwich_wide<float>`` at 400k x 200, 1M x 177, 200k x 1000 and 50k x 2048,
+each beside ``sandwich<float>`` (``sandwich_tiled``, the f32 kernel past 176
+before ``sandwich_wide.cu``, its source unchanged) as its parent;
+``sandwich_narrow<float>`` at 4M x 10.  Times are CUDA events over
+``--reps`` calls held back to back (``chip_smoke._time_ms``), in turns
+kernel, parent, einsum, einsum, parent, kernel.
 
 ``--parent-cu PATH`` names a ``sandwich.cu`` of another commit (git is not
 needed here: write it beforehand with ``git show <commit>:tabmat_torch/
@@ -31,9 +36,9 @@ csrc/sandwich.cu``).  It is built with the same flags into
 and 400k x 160, each with the row split of ``sandwich_kernel.launch_plan``.
 
 ``--sass`` disassembles the libraries with the toolkit's ``cuobjdump`` and
-prints, for each instantiation of ``sandwich_tri.cu``'s first pass, the
-instructions of its row loop (the shortest loop that holds 64 FFMAs or
-more) by opcode, and for each instantiation of ``sandwich_mma_tri.cu``'s
+prints, for each instantiation of ``sandwich_tri.cu``'s first pass and for
+``sandwich_wide.cu``'s, the instructions of its row loop (the shortest loop
+that holds 64 FFMAs or more) by opcode, and for each instantiation of ``sandwich_mma_tri.cu``'s
 first pass each k-step loop (the innermost loops that hold a DMMA: one for
 each warp of a triangle group) by opcode, DMMA, LDS and DMUL first.
 
@@ -45,6 +50,12 @@ both copies and ``X.sum()`` (a plain read of X) in turns; then it runs the
 kernel and each copy back to back for two seconds while ``nvidia-smi``
 samples the SM clock and the power draw every 100 ms, and prints their
 median and least.  It prints this instead of the cases.
+
+``--diagnose-wide`` does the same for ``sandwich_wide.cu`` at the four
+shapes of its cases, with three copies (``WIDE_CUTS``): "copies only" (the
+products dropped), "FFMAs only" (the refills after the first two stages
+dropped) and "FFMAs without loads" (the row loop reads the same two rows at
+every turn, so its shared loads leave the loop).
 
 Each case prints one JSON line: ``ms``, ``einsum_ms`` and ``parent_ms``
 (means of the two turns, and each turn), ``bound_ms``
@@ -73,7 +84,10 @@ import chip_smoke  # noqa: E402
 from tabmat_torch import _build  # noqa: E402
 from tabmat_torch.ops import sandwich_kernel as sk  # noqa: E402
 
-SOURCES = ("sandwich", "sandwich_narrow", "sandwich_tri", "sandwich_mma", "sandwich_mma_tri")
+SOURCES = ("sandwich", "sandwich_narrow", "sandwich_tri", "sandwich_wide", "sandwich_mma",
+           "sandwich_mma_tri")
+WIDE_SHAPES = ((chip_smoke.WIDE_N, chip_smoke.F32_WIDE_K), (1_000_000, 177), (200_000, 1000),
+               (50_000, 2048))
 MAIN_SHAPES = ((chip_smoke.N, chip_smoke.K), (chip_smoke.WIDE_N, chip_smoke.WIDE_K))
 # (kernel, n, k)
 CASES = (
@@ -84,10 +98,11 @@ CASES = (
     + [("sandwich_tri<float>", n, k) for n, k in MAIN_SHAPES]
     + [("sandwich_tri<float>", 1_000_000, k) for k in (33, 64, 100, 176)]
     + [("sandwich<float>", n, k) for n, k in MAIN_SHAPES]
-    + [("sandwich<float>", 1_000_000, 177), ("sandwich<float>", 200_000, 1000)]
+    + [("sandwich_wide<float>", n, k) for n, k in WIDE_SHAPES]
     + [("sandwich_narrow<float>", chip_smoke.NARROW_N, chip_smoke.NARROW_K)]
 )
-# the cases the parent's sandwich.cu is timed beside
+# the cases the parent's sandwich.cu is timed beside (the wide kernel's
+# cases always beside this tree's sandwich<float>)
 PARENT_CASES = {("sandwich_mma_tri<double>", 1_000_000, 50),
                 ("sandwich_mma_tri<double>", 1_000_000, 100)}
 PARENT_CASES |= {("sandwich<float>", n, k) for n, k in MAIN_SHAPES}
@@ -125,18 +140,22 @@ def _loops(code) -> list:
 
 def row_loops(so: str) -> dict:
     """``{instantiation: Counter of opcodes}`` of the row loop of each
-    ``tri_partial<NT>`` in the library ``so``."""
+    ``tri_partial<NT>``, and of ``wide_partial``, in the library ``so``."""
     loops = {}
     for head, code in _functions(so):
         name = re.search(r"tri_partialILi(\d+)E", head)
-        if name is None or "mma_tri" in head:
+        if "wide_partial" in head:
+            label = "wide_partial"
+        elif name is not None and "mma_tri" not in head:
+            label = f"tri_partial<{name.group(1)}>"
+        else:
             continue
         best = None
         for _, _, body in _loops(code):
             if body["FFMA"] >= 64 and (best is None or sum(body.values()) < sum(best.values())):
                 best = body
         if best is not None:
-            loops[f"tri_partial<{name.group(1)}>"] = best
+            loops[label] = best
     return loops
 
 
@@ -177,12 +196,11 @@ def _library_of(source: str, name: str, label: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so))
     for symbol in ("tabmat_sandwich_f64", "tabmat_sandwich_f32", "tabmat_sandwich_mma_tri_f64"):
         if hasattr(lib, symbol):
-            getattr(lib, symbol).argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-                ctypes.c_int, ctypes.c_void_p,
-            ]
-    for symbol in ("tabmat_sandwich_blocks_per_sm", "tabmat_sandwich_mma_tri_blocks_per_sm"):
+            getattr(lib, symbol).argtypes = sk._SANDWICH_ARGTYPES
+    if hasattr(lib, "tabmat_sandwich_wide_f32"):
+        lib.tabmat_sandwich_wide_f32.argtypes = sk._WIDE_ARGTYPES
+    for symbol in ("tabmat_sandwich_blocks_per_sm", "tabmat_sandwich_mma_tri_blocks_per_sm",
+                   "tabmat_sandwich_wide_blocks_per_sm"):
         if hasattr(lib, symbol):
             getattr(lib, symbol).argtypes = [ctypes.c_int, ctypes.c_void_p]
     return lib
@@ -225,31 +243,48 @@ DIAGNOSE_CUTS = {
     "MMAs only": ("    if (st + STAGES - 1 < stages) issue(st + STAGES - 1);\n", ""),
 }
 DIAGNOSE_SHAPES = ((1_000_000, 50), (1_000_000, 128))
+# --diagnose-wide: the same for sandwich_wide.cu
+WIDE_CUTS = {
+    "copies only": ("    if (active) stage_products(acc, a_slot(st), b_slot(st), rows_of(st), "
+                    "a_first, a_second, j0);\n", ""),
+    "FFMAs only": ("    if (st + STAGES - 1 < stages) issue(st + STAGES - 1);\n", ""),
+    # the row loop without its shared loads: every turn reads the stage's
+    # first two rows, which the compiler then loads once a stage
+    "FFMAs without loads": ("    xa += 2 * TILE;\n    xa2 += 2 * TILE;\n    xb += 2 * TILE;\n"
+                            "    xb2 += 2 * TILE;\n", ""),
+}
+# the kernel each diagnosis takes apart -> (its cuts, its shapes)
+DIAGNOSES = {
+    "sandwich_mma_tri<double>": (DIAGNOSE_CUTS, DIAGNOSE_SHAPES),
+    "sandwich_wide<float>": (WIDE_CUTS, WIDE_SHAPES),
+}
 
 
-def cut_kernel(label: str):
-    """``sandwich_mma_tri(X, d)`` through a copy of ``sandwich_mma_tri.cu``
-    with the line of ``DIAGNOSE_CUTS[label]`` replaced (its result is wrong
-    by design: it times half of the work)."""
-    old, new = DIAGNOSE_CUTS[label]
-    source = (_build.CSRC / "sandwich_mma_tri.cu").read_text()
-    if source.count(old) != 1:
-        raise RuntimeError(f"the line cut for {label!r} is not in sandwich_mma_tri.cu once")
-    lib = _library_of(source.replace(old, new), "cut_sandwich_mma_tri", label)
+def cut_kernel(name: str, label: str):
+    """Kernel ``name`` (a key of ``DIAGNOSES``) through a copy of its source
+    with the line of its cut ``label`` replaced (a cut's result is wrong by
+    design: it times half of the work)."""
+    source, symbol = sk._KERNELS[name]
+    old, new = DIAGNOSES[name][0][label]
+    text = (_build.CSRC / f"{source}.cu").read_text()
+    if text.count(old) != 1:
+        raise RuntimeError(f"the line cut for {label!r} is not in {source}.cu once")
+    lib = _library_of(text.replace(old, new), f"cut_{source}", f"{source}.cu, {label}")
     blocks = ctypes.c_int(0)
-    if lib.tabmat_sandwich_mma_tri_blocks_per_sm(1, ctypes.byref(blocks)) != 0:
+    is_f64 = int(name.endswith("<double>"))
+    if getattr(lib, f"tabmat_{source}_blocks_per_sm")(is_f64, ctypes.byref(blocks)) != 0:
         raise RuntimeError("the occupancy query failed")
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
 
     def run(X, d):
         n, k = X.shape
-        splits, rows_per_split = sk.tri_plan(n, n_sm, max(1, blocks.value))
+        splits, size, rows = sk.first_pass_args(source, n, k, n_sm, max(1, blocks.value),
+                                                X.device)
         out = torch.empty((k, k), dtype=X.dtype, device=X.device)
-        partial = torch.empty((splits, sk.mma_tri_partial_size(k)), dtype=X.dtype,
-                              device=X.device)
-        err = lib.tabmat_sandwich_mma_tri_f64(
-            X.data_ptr(), d.data_ptr(), out.data_ptr(), partial.data_ptr(), n, k, splits,
-            rows_per_split, 0, torch.cuda.current_stream().cuda_stream)
+        partial = torch.empty((splits, size), dtype=X.dtype, device=X.device)
+        err = getattr(lib, symbol)(X.data_ptr(), d.data_ptr(), out.data_ptr(),
+                                   partial.data_ptr(), n, k, splits, rows, 0,
+                                   torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"{label} failed: CUDA error {err}")
         return out
@@ -285,21 +320,24 @@ def _sustained(fn, seconds: float = 2.0) -> dict:
             "power_w_most": power[-1], "samples": len(rows)}
 
 
-def diagnose(device, reps: int, card: str) -> None:
-    """The kernel beside its two halves and a plain read of X, in turns and
-    sustained (``--diagnose``)."""
-    cuts = {label: cut_kernel(label) for label in DIAGNOSE_CUTS}
+def diagnose(device, reps: int, card: str, name: str) -> None:
+    """Kernel ``name`` beside its halves and a plain read of X, in turns and
+    sustained (``--diagnose``, ``--diagnose-wide``)."""
+    cut_table, shapes = DIAGNOSES[name]
+    cuts = {label: cut_kernel(name, label) for label in cut_table}
+    dtype = torch.float64 if name.endswith("<double>") else torch.float32
+    kernel = sk.KERNEL_WRAPPERS[name]
     gen = torch.Generator(device=device).manual_seed(9)
-    for n, k in DIAGNOSE_SHAPES:
-        X = torch.randn(n, k, device=device, dtype=torch.float64, generator=gen)
-        d = torch.randn(n, device=device, dtype=torch.float64, generator=gen)
-        calls = {"kernel": lambda: sk.sandwich_mma_tri(X, d), "X.sum()": lambda: X.sum()}
+    for n, k in shapes:
+        X = torch.randn(n, k, device=device, dtype=dtype, generator=gen)
+        d = torch.randn(n, device=device, dtype=dtype, generator=gen)
+        calls = {"kernel": lambda: kernel(X, d), "X.sum()": lambda: X.sum()}
         calls.update({label: (lambda fn=fn: fn(X, d)) for label, fn in cuts.items()})
         turns = {which: [] for which in calls}
         for which in list(calls) + list(calls)[::-1]:
             turns[which].append(chip_smoke._time_ms(calls[which], reps=reps))
-        bound_ms, bound_by = chip_smoke.sandwich_bound(n, k, 8)
-        print(json.dumps({"diagnose": "sandwich_mma_tri<double>", "n": n, "k": k,
+        bound_ms, bound_by = chip_smoke.sandwich_bound(n, k, X.element_size())
+        print(json.dumps({"diagnose": name, "n": n, "k": k,
                           "ms": {w: sum(v) / len(v) for w, v in turns.items()},
                           "turns_ms": turns, "bound_ms": bound_ms, "bound_by": bound_by,
                           "card": card}), flush=True)
@@ -354,7 +392,9 @@ def main() -> int:
     parser.add_argument("--reps", type=int, default=20)
     parser.add_argument("--parent-cu", type=Path, default=None)
     parser.add_argument("--sass", action="store_true")
-    parser.add_argument("--diagnose", action="store_true")
+    which = parser.add_mutually_exclusive_group()
+    which.add_argument("--diagnose", action="store_true")
+    which.add_argument("--diagnose-wide", action="store_true")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("time_sandwich: no CUDA card", file=sys.stderr)
@@ -368,17 +408,26 @@ def main() -> int:
         print(f"{name}.cu built in {info['seconds']} s (None: reused)")
         for line in ptxas_lines(info["log"]):
             print(f"  {line}")
+    for name, is_f64 in (("sandwich_tri", 0), ("sandwich_wide", 0), ("sandwich_mma_tri", 1)):
+        blocks = ctypes.c_int(0)
+        err = getattr(sk._library(name), f"tabmat_{name}_blocks_per_sm")(is_f64,
+                                                                         ctypes.byref(blocks))
+        print(f"{name}.cu: {blocks.value} resident first-pass blocks per SM (error {err})")
     if args.sass:
-        for name, ops in row_loops(_build.build_info["sandwich_tri"]["path"]).items():
+        loops = {**row_loops(_build.build_info["sandwich_tri"]["path"]),
+                 **row_loops(_build.build_info["sandwich_wide"]["path"])}
+        for name, ops in loops.items():
             total = sum(ops.values())
             print(f"{name} row loop: {total} instructions, {ops['FFMA']} FFMA "
-                  f"({ops['FFMA'] / total:.3f}); {dict(ops.most_common())}")
+                  f"({ops['FFMA'] / total:.3f}), {ops['LDS']} LDS, {ops['FMUL']} FMUL; "
+                  f"{dict(ops.most_common())}")
         for name, loops in kstep_loops(_build.build_info["sandwich_mma_tri"]["path"]).items():
             for ops in loops:
                 print(f"{name} k-step loop: {sum(ops.values())} instructions, {ops['DMMA']} DMMA, "
                       f"{ops['LDS']} LDS, {ops['DMUL']} DMUL; {dict(ops.most_common())}")
-    if args.diagnose:
-        diagnose(device, args.reps, card)
+    if args.diagnose or args.diagnose_wide:
+        diagnose(device, args.reps, card,
+                 "sandwich_wide<float>" if args.diagnose_wide else "sandwich_mma_tri<double>")
         return 0
     parent = None if args.parent_cu is None else parent_kernel(args.parent_cu)
     gen = torch.Generator(device=device).manual_seed(8)
@@ -388,8 +437,9 @@ def main() -> int:
         X = torch.randn(n, k, device=device, dtype=dtype, generator=gen)
         d = torch.randn(n, device=device, dtype=dtype, generator=gen)
         d[::5] = 0.0
-        ok &= held(name, sk.KERNEL_WRAPPERS[name], X, d, args.reps, card,
-                   parent if (name, n, k) in PARENT_CASES else None)
+        yardstick = sk.sandwich_tiled if name == "sandwich_wide<float>" else (
+            parent if (name, n, k) in PARENT_CASES else None)
+        ok &= held(name, sk.KERNEL_WRAPPERS[name], X, d, args.reps, card, yardstick)
         del X, d
     return 0 if ok else 1
 
