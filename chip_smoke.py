@@ -21,7 +21,8 @@ Phases, each printed as it runs:
    at 1,000,000 x 50, 400,000 x 160 and k in {33, 50, 64, 100, 160, 176};
    ``sandwich_mma_tri<double>`` at 1,000,000 x 50, at 1, 7 and 40 rows and
    k in {33, 50, 64, 100, 127, 128}; ``sandwich_mma<double>`` at 400,000 x
-   160 and k in {129, 160, 200, 1000}),
+   160, at 1, 7 and 40 rows and k in {129, 137, 160, 200, 255, 256, 257,
+   1000, 1024}, odd widths and the 128-column tile's edges),
    with negative and zero weights, exactly symmetric and bit-identical across
    two launches, and a control that the f32 limit rejects a TF32-rounded
    product; the width dispatch at 32/33 and 128/129 (f64) and 32/33 and
@@ -75,8 +76,8 @@ Phases, each printed as it runs:
    the one PyTorch call that computes the same function (``torch.einsum``
    for the sandwiches, cuSPARSE through ``torch.sparse_csr_tensor`` for the
    sparse product), the sandwich kernels at 1M x 50, 1M x 5, 4M x 10,
-   400k x 160, 400k x 200, 1M x 177, 200k x 1000 and ``sparse_wide``'s
-   panels, and one
+   400k x 160, 400k x 200, 1M x 177, 1M x 129, 200k x 1000 (f32 and f64)
+   and ``sparse_wide``'s panels, and one
    ``irls_step`` on each path in each inner precision, with the kernel
    launches per step.
 
@@ -122,7 +123,8 @@ SANDWICH_CASES = {
     "sandwich_wide<float>": (((WIDE_N, F32_WIDE_K),), (177, 200, 255, 256, 257, 1000, 1024)),
     "sandwich_mma_tri<double>": (((N, K), (1, K), (7, 128), (40, 100)),
                                  (33, 50, 64, 100, 127, 128)),
-    "sandwich_mma<double>": (((WIDE_N, WIDE_K),), (129, 160, 200, 1000)),
+    "sandwich_mma<double>": (((WIDE_N, WIDE_K), (1, 129), (7, 257), (40, 1000)),
+                             (129, 137, 160, 200, 255, 256, 257, 1000, 1024)),
 }
 # the width dispatch at its boundaries: (k, dtype name) -> kernel
 ROUTES = {
@@ -931,7 +933,8 @@ def sandwich_bound(n: int, k: int, size: int):
 
 # sandwich kernel -> the shapes phase 8 times it at; the first is its row
 # in the kernels line (the 1M x 50 main path, path (a), path (b), the f32
-# steps and matrix past the triangle kernel's widths)
+# steps and matrix past the triangle kernel's widths; the tensor-core
+# kernel at the f64 steps of 4b and 4d, the route's edge and a wide design)
 SANDWICH_TIMES = {
     "sandwich<double>": ((N, K),),
     "sandwich<float>": ((WIDE_N, F32_WIDE_K),),
@@ -940,7 +943,8 @@ SANDWICH_TIMES = {
     "sandwich_narrow<float>": ((NARROW_N, NARROW_K), (N, MIX_KD)),
     "sandwich_tri<float>": ((N, K), (WIDE_N, WIDE_K)),
     "sandwich_mma_tri<double>": ((N, K),),
-    "sandwich_mma<double>": ((WIDE_N, WIDE_K),),
+    "sandwich_mma<double>": ((WIDE_N, WIDE_K), (WIDE_N, F32_WIDE_K), (1_000_000, 129),
+                             (200_000, 1000)),
 }
 
 

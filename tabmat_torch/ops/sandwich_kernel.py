@@ -53,9 +53,17 @@ dtype:
   ``:_sliced_pairs_kernel`` (the slice-pair contractions whose f64
   combination is ``AᵀB`` with A = d·X, the TPU default for 128 < k ≤ 160),
   and v3 / v5 beyond one lane tile.  Balanced at 400k × 160 (0.153 ms of
-  bytes, 0.154 ms of operations at 67 TFLOP/s), bound by operations at
-  k = 10⁴: FP64 tensor cores through ``mma.sync.m16n8k8``, 64 × 64 tiles
-  of four 32 × 32 warp tiles.
+  bytes, 0.154 ms of operations at 67 TFLOP/s), bound by operations past
+  it: FP64 tensor cores through ``mma.sync.m16n8k8``.  A block owns one
+  pair of 128-column tiles (the last tile the remainder) and computes only
+  the ``m16n8k8`` accumulator tiles that start inside both tiles and, on a
+  diagonal pair, on or above the diagonal, in warp tiles of 64 × 32 and
+  18 fixed tile patterns; where the last tile is 32 columns or fewer, its
+  pairs also take the diagonal pairs (:func:`mma_units`; at k = 160 two
+  units of 104 and 6 tiles).  Both strips staged by three cp.async stages
+  of 32 rows, one on a diagonal pair; d·x applied to the B fragments.
+  :func:`mma_plan` sizes each unit's splits by a cost a stage fitted to the
+  blocks' times; :func:`mma_blocks` is the launch table.
 
 Hopper has native FP64, so every f64 kernel computes the function
 directly, without the TPU's planes; f32 uses FFMA, never TF32.  Each
@@ -94,14 +102,14 @@ launches = {
 
 # Must match csrc/sandwich.cu, csrc/sandwich_narrow.cu, csrc/sandwich_tri.cu,
 # csrc/sandwich_wide.cu, csrc/sandwich_mma.cu and csrc/sandwich_mma_tri.cu.
-TILE = 64  # the output tile of sandwich<T> and sandwich_mma<double>
+TILE = 64  # the output tile of sandwich<T>
 ROWS = 32
 NARROW_MAX_K = 32
 TRI_MT = 8  # the micro-tile edge of sandwich_tri<float>
 TRI_MIN_K = 33  # the kernel is built for 5 to 22 micro-tiles a side
 TRI_MAX_K = 176  # 22 micro-tiles a side: 253 upper ones, one a thread of 256
-WIDE_TILE = 128  # the column tile of sandwich_wide<float>, for k > TRI_MAX_K
-WIDE_ROWS = 32  # rows of X a stage of sandwich_wide<float>
+WIDE_TILE = 128  # the column tile of sandwich_wide<float> and sandwich_mma<double>
+WIDE_ROWS = 32  # rows of X a stage of sandwich_wide<float> and sandwich_mma<double>
 WIDE_MIN_K = 129  # f64 widths for the tensor cores (pallas_sandwich_v4.py:71)
 MMA_TRI_MIN_K = 33  # sandwich_mma_tri<double>: 5 to 16 column blocks of 8
 MMA_TRI_MAX_K = WIDE_MIN_K - 1
@@ -115,8 +123,10 @@ _SANDWICH_ARGTYPES = [
     ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
     ctypes.c_int, ctypes.c_void_p,
 ]
-# sandwich_wide.cu takes a device table of rows a split, one a tile pair
+# sandwich_wide.cu takes a device table of rows a split, one a tile pair;
+# sandwich_mma.cu its launch table (mma_blocks)
 _WIDE_ARGTYPES = _SANDWICH_ARGTYPES[:7] + [ctypes.c_void_p] + _SANDWICH_ARGTYPES[8:]
+_TABLE_SOURCES = ("sandwich_wide", "sandwich_mma")
 _ABSMAX_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
@@ -192,8 +202,8 @@ def _split_rows(n: int, splits: int, multiple: int):
 
 
 def launch_plan(n: int, k: int, n_sm: int, blocks_per_sm: int):
-    """Row split of the first pass of ``sandwich<T>`` and
-    ``sandwich_mma<double>``: ``(splits, rows_per_split)``.
+    """Row split of the first pass of ``sandwich<T>``:
+    ``(splits, rows_per_split)``.
 
     The grid of 64 × 64 upper tile pairs × splits fills one wave of
     ``n_sm * blocks_per_sm`` resident blocks, never one block more: every
@@ -237,23 +247,41 @@ def wide_plan(n: int, k: int, n_sm: int, blocks_per_sm: int):
     within one wave of ``n_sm * blocks_per_sm`` resident blocks (one split
     each once the pairs alone fill it, as in :func:`launch_plan`).
     """
-    return _wide_plan(max(n, 1), k, n_sm * blocks_per_sm)
+    costs = tuple(-(-a // 4) for a in wide_active_warps(k))
+    return _cost_plan(max(n, 1), costs, n_sm * blocks_per_sm, "sandwich_wide")
+
+
+def mma_plan(n: int, k: int, n_sm: int, blocks_per_sm: int):
+    """Row split of ``sandwich_mma<double>``: ``(splits, pair_splits)``.
+
+    Each unit (:func:`mma_units`) gets the splits that
+    :func:`wide_plan`'s sizing gives it, with a pair's cost the MMAs a
+    stage (:func:`mma_pair_costs`): ``pair_splits[p]`` = ⌈n / its rows a
+    split⌉, so the splits fill one wave and end together.  The kernel hands
+    split s of S the ``WIDE_ROWS``-row stages s, s + S, ..., so every block
+    walks down X at the same pace; ``splits``, the scratch's splits, is the
+    most of any pair (:func:`mma_blocks` lists the blocks)."""
+    n = max(n, 1)
+    _, pair_rows = _cost_plan(n, tuple(mma_pair_costs(k)), n_sm * blocks_per_sm, "sandwich_mma")
+    pair_splits = tuple(-(-n // r) for r in pair_rows)
+    return max(pair_splits), pair_splits
 
 
 @functools.lru_cache(maxsize=256)
-def _wide_plan(n: int, k: int, wave: int):
-    costs = [-(-a // 4) for a in wide_active_warps(k)]
+def _cost_plan(n: int, costs: tuple, wave: int, name: str):
+    """``(splits, pair_rows)`` for pairs of ``costs`` (time a row, any unit)
+    over ``wave`` resident blocks: see :func:`wide_plan`."""
     sched_rows = _least_sched_rows(n, costs, wave)
     pair_rows = tuple(_wide_rows(sched_rows, c) for c in costs)
     splits = max(-(-n // r) for r in pair_rows)
     if splits > MAX_SPLITS:
-        raise ValueError(f"sandwich_wide would need {splits} row splits (at most {MAX_SPLITS})")
+        raise ValueError(f"{name} would need {splits} row splits (at most {MAX_SPLITS})")
     return splits, pair_rows
 
 
 def _least_sched_rows(n: int, costs: list, wave: int) -> int:
-    """The least ``sched_rows`` whose splits that hold rows, over pairs whose
-    busiest schedulers issue for ``costs`` warps, fit ``wave``."""
+    """The least ``sched_rows`` whose splits that hold rows, over pairs of
+    ``costs`` (a row's time, in any unit), fit ``wave``."""
 
     def blocks(sched_rows):
         return sum(-(-n // _wide_rows(sched_rows, c)) for c in costs)
@@ -277,8 +305,8 @@ def _on_device(values: tuple, device: torch.device) -> torch.Tensor:
 
 
 def _wide_rows(sched_rows: int, per_sched: int) -> int:
-    """Rows of one split of a tile pair whose busiest scheduler issues for
-    ``per_sched`` warps."""
+    """Rows of one split, whole stages, of a tile pair of cost ``per_sched``
+    a row (its busiest scheduler's warps in :func:`wide_plan`)."""
     return -(-sched_rows // (per_sched * WIDE_ROWS)) * WIDE_ROWS
 
 
@@ -305,6 +333,127 @@ def wide_active_warps(k: int) -> list:
                 r < wa and c < wb and (ti != tj or r < c + 32)
                 for r, c in ((64 * (w // 4), 32 * (w % 4)) for w in range(8))))
     return counts
+
+
+# A pair's cost a stage in sandwich_mma<double>, in a third of the time of
+# one MMA on one scheduler: 3 a busiest scheduler's MMA a k-step, MMA_STAGE
+# for the stage's barrier, fragment loads and copy latency, and one a 16
+# staged columns (a least-squares fit of the blocks' times on the card,
+# PERF.md)
+MMA_STAGE_COST = 18
+MMA_BAND = 8  # tiles a band: the launch order of sandwich_mma<double>'s pairs
+
+
+def _mma_tiles(offset, rows=4, cols=4) -> frozenset:
+    """Accumulator tiles (u, v) of a 64 × 32 warp tile: the ``rows`` ×
+    ``cols`` corner, and with ``offset`` (its first column less its first
+    row, on a diagonal pair) those on or above the diagonal."""
+    return frozenset((u, v) for u in range(rows) for v in range(cols)
+                     if offset is None or offset + 8 * v >= 16 * u)
+
+
+# the fixed patterns of sandwich_mma.cu besides its U × V corners: all 16
+# tiles, and the diagonal ones where a warp tile starts on a diagonal pair's
+# diagonal or 32 columns past it
+_MMA_PATTERNS = (_mma_tiles(None), _mma_tiles(0), _mma_tiles(32))
+
+
+def mma_units(k: int) -> list:
+    """The blocks' units of work of ``sandwich_mma<double>``: ``(ti, tj,
+    with_diag)`` in row order, one a tile pair ti ≤ tj of 128-column tiles
+    (the last tile the remainder), but that where the last tile is 32
+    columns or fewer, the pair (ti, last) with ti < last also takes the
+    diagonal pair (ti, ti) (``with_diag``), which then has no unit of its
+    own: the first pair's two busy warp tiles and the diagonal pair's six
+    fill the block's eight warps, and strip ti is staged once for both."""
+    nt = -(-k // WIDE_TILE)
+    merge = nt >= 2 and k - (nt - 1) * WIDE_TILE <= 32
+    return [(ti, tj, merge and ti < tj == nt - 1) for ti in range(nt) for tj in range(ti, nt)
+            if not (merge and ti == tj < nt - 1)]
+
+
+def _mma_warp_counts(k: int, ti: int, tj: int, diag_too: bool) -> list:
+    """The MMAs a k-step of each warp tile with live tiles of pair (ti, tj)
+    and, with ``diag_too``, of the diagonal pair (ti, ti)."""
+    def counts(ti, tj):
+        wa, wb = min(WIDE_TILE, k - ti * WIDE_TILE), min(WIDE_TILE, k - tj * WIDE_TILE)
+        for q in range(8):
+            r0, c0 = 64 * (q // 4), 32 * (q % 4)
+            live = frozenset(
+                (u, v) for u in range(4) for v in range(4)
+                if r0 + 16 * u < wa and c0 + 16 * (v // 2) + v % 2 < wb
+                and (ti != tj or c0 + 16 * (v // 2) >= r0 + 16 * u))
+            if live and live not in _MMA_PATTERNS:
+                live = _mma_tiles(None, 1 + max(u for u, _ in live), 1 + max(v for _, v in live))
+            yield len(live)
+
+    return list(counts(ti, tj)) + (list(counts(ti, ti)) if diag_too else [])
+
+
+def mma_warp_tiles(k: int) -> list:
+    """For each unit (:func:`mma_units`) of ``sandwich_mma<double>``, the
+    ``m16n8k8`` MMAs a k-step of each busy warp, in warp order.
+
+    A pair's warp tiles q = 0..7 sit at rows 64·(q // 4) and columns
+    32·(q % 4) of the 128 × 128 pair and hold 4 × 4 accumulator tiles of 16
+    rows by 8 columns, column block v the even (v even) or odd columns of
+    the 16 from 16·(v // 2); a tile is live where it starts inside both
+    tiles and, on a diagonal pair, its 16-column group starts at or past
+    its first row.  A warp computes a fixed pattern that holds its live
+    tiles: all 16, the 6 or 14 of a warp tile that starts on the diagonal
+    or 32 columns past it, or else the smallest corner of rows by columns
+    that holds them.  The kernel ranks the busy warp tiles of a unit by
+    their pattern's tiles, most first, and hands ranks 0-3 to warps 3-0 and
+    the rest to warps 4, 5, ...: the list is in that warp order.  Only the
+    balance of :func:`mma_plan` rests on it, not which rows are covered."""
+    units = []
+    for ti, tj, diag_too in mma_units(k):
+        ranked = sorted((c for c in _mma_warp_counts(k, ti, tj, diag_too) if c), reverse=True)
+        if len(ranked) > 8:
+            raise AssertionError(f"unit {(ti, tj, diag_too)} of k = {k} has {len(ranked)} warps")
+        head = min(len(ranked), 4)
+        units.append(ranked[:head][::-1] + ranked[head:])
+    return units
+
+
+def mma_pair_costs(k: int) -> list:
+    """The cost of a stage of each unit of ``sandwich_mma<double>``
+    (:func:`mma_units`): 3 × the MMAs a k-step of its busiest scheduler
+    (warp w issues on scheduler w % 4), plus ``MMA_STAGE_COST``, plus one a
+    16 columns it stages (one strip on a diagonal pair, two else)."""
+    width = [min(WIDE_TILE, k - t * WIDE_TILE) for t in range(-(-k // WIDE_TILE))]
+    staged = [width[tj] + (width[ti] if ti != tj else 0) for ti, tj, _ in mma_units(k)]
+    return [3 * max(sum(warps[s::4]) for s in range(4)) + MMA_STAGE_COST + -(-cols // 16)
+            for warps, cols in zip(mma_warp_tiles(k), staged)]
+
+
+def mma_blocks(n: int, k: int, n_sm: int, blocks_per_sm: int):
+    """The launch table of ``sandwich_mma<double>``: ``(splits, table)``.
+
+    ``table`` holds the count of blocks, then one entry a block in launch
+    order, ``ti << 48 | tj << 32 | with_diag << 47 | s << 16 | S``: split s
+    of the S of unit (ti, tj, with_diag) (:func:`mma_units`,
+    :func:`mma_plan`).  The units come in row order within pairs of bands
+    of ``MMA_BAND`` tiles, the bands' pairs in row order, so that the
+    blocks resident at once read few strips; a unit's splits come
+    together."""
+    return _mma_blocks(max(n, 1), k, n_sm * blocks_per_sm)
+
+
+@functools.lru_cache(maxsize=256)
+def _mma_blocks(n: int, k: int, wave: int):
+    splits, unit_splits = mma_plan(n, k, wave, 1)
+    nt = -(-k // WIDE_TILE)
+    if nt >= 1 << 15:
+        raise ValueError(f"sandwich_mma takes k < {WIDE_TILE << 15}, got {k}")
+    units = mma_units(k)
+    band = {(ti // MMA_BAND, tj // MMA_BAND, ti, tj): u for u, (ti, tj, _) in enumerate(units)}
+    entries = []
+    for key in sorted(band):
+        ti, tj, diag_too = units[band[key]]
+        S = unit_splits[band[key]]
+        entries += [ti << 48 | tj << 32 | diag_too << 47 | s << 16 | S for s in range(S)]
+    return splits, (len(entries), *entries)
 
 
 def tri_partial_size(k: int) -> int:
@@ -412,10 +561,13 @@ def _run_sandwich(name: str, X, d, out):
 def first_pass_args(source: str, n: int, k: int, n_sm: int, blocks_per_sm: int, device):
     """``(splits, elements of one split's partial, the row argument)`` of
     ``csrc/<source>.cu``'s first pass: the row argument is the rows a split,
-    or for ``sandwich_wide`` the address of its table on ``device``."""
-    if source == "sandwich_wide":
-        splits, pair_rows = wide_plan(n, k, n_sm, blocks_per_sm)
-        return splits, k * k, _on_device(pair_rows, device).data_ptr()
+    or for ``sandwich_wide`` and ``sandwich_mma`` the address of its table
+    on ``device`` (rows a split of each tile pair; the launch table of
+    :func:`mma_blocks`)."""
+    if source in _TABLE_SOURCES:
+        plan = wide_plan if source == "sandwich_wide" else mma_blocks
+        splits, table = plan(n, k, n_sm, blocks_per_sm)
+        return splits, k * k, _on_device(table, device).data_ptr()
     if source in ("sandwich_tri", "sandwich_mma_tri"):
         splits, rows_per_split = tri_plan(n, n_sm, blocks_per_sm)
         size = (tri_partial_size if source == "sandwich_tri" else mma_tri_partial_size)(k)
@@ -529,7 +681,7 @@ def _library(source: str):
 
         signatures = {
             symbol: (_ABSMAX_ARGTYPES if name == "column_absmax" else
-                     _WIDE_ARGTYPES if src == "sandwich_wide" else _SANDWICH_ARGTYPES)
+                     _WIDE_ARGTYPES if src in _TABLE_SOURCES else _SANDWICH_ARGTYPES)
             for name, (src, symbol) in _KERNELS.items() if src == source
         }
         signatures[f"tabmat_{source}_blocks_per_sm"] = [ctypes.c_int, ctypes.c_void_p]

@@ -155,9 +155,33 @@ def test_mma_tri_kernel_rejects_float32(cuda):
         sk.sandwich_mma_tri(X, d)
 
 
-@pytest.mark.parametrize("k", [129, 160, 200, 1000])
+@pytest.mark.parametrize("k", [129, 137, 160, 200, 255, 256, 257, 1000, 1024])
 def test_mma_kernel_matches_plain(cuda, k):
+    """Odd widths (8-byte copies), the 128-column tile's edges and a last
+    tile of one column (129, 257); d has zeros and negatives; with ``out=``
+    the second pass adds S into it."""
     X, d = _inputs(100_003 if k < 1000 else 20_011, k, torch.float64, cuda, seed=k)
+    _held_against_plain("sandwich_mma<double>", sk.sandwich_mma, X, d)
+
+
+@pytest.mark.parametrize("k", [129, 160, 257, 1000])
+@pytest.mark.parametrize("n", [1, 7, 40])
+def test_mma_kernel_few_rows(cuda, n, k):
+    """One row, a few rows, and fewer rows than two stages (32 rows each):
+    most pairs' splits then hold no rows and write zeros."""
+    gen = torch.Generator(device=cuda).manual_seed(n + k)
+    X = torch.randn(n, k, device=cuda, dtype=torch.float64, generator=gen)
+    d = torch.rand(n, device=cuda, dtype=torch.float64, generator=gen) + 0.5
+    d[1::3] *= -1.0
+    d[2::5] = 0.0
+    _held_against_plain("sandwich_mma<double>", sk.sandwich_mma, X, d)
+
+
+@pytest.mark.parametrize("k", [1025, 2100])
+def test_mma_kernel_past_one_band(cuda, k):
+    """Past 1024 columns the launch table orders the pairs by bands of 8
+    tiles."""
+    X, d = _inputs(3_001, k, torch.float64, cuda, seed=k)
     _held_against_plain("sandwich_mma<double>", sk.sandwich_mma, X, d)
 
 

@@ -263,6 +263,133 @@ def test_wide_pairs(k, pairs):
     assert (nt - 1) * sk.WIDE_TILE < k <= nt * sk.WIDE_TILE
 
 
+@pytest.mark.parametrize("k,units", [(129, [(0, 1, True), (1, 1, False)]),
+                                     (160, [(0, 1, True), (1, 1, False)]),
+                                     (161, [(0, 0, False), (0, 1, False), (1, 1, False)]),
+                                     (288, [(0, 1, False), (0, 2, True), (1, 2, True),
+                                            (2, 2, False)]),
+                                     (1000, None)])
+def test_mma_units(k, units):
+    """The blocks' units of work: every tile pair once; where the last tile
+    is 32 columns or fewer, each diagonal pair (ti, ti) but the last rides
+    with the pair (ti, last)."""
+    got = sk.mma_units(k)
+    if units is not None:
+        assert got == units
+    nt = -(-k // sk.WIDE_TILE)
+    merged = nt >= 2 and k - (nt - 1) * sk.WIDE_TILE <= 32
+    covered = [(ti, tj) for ti, tj, _ in got] + [(ti, ti) for ti, _, diag_too in got if diag_too]
+    assert sorted(covered) == [(ti, tj) for ti in range(nt) for tj in range(ti, nt)]
+    assert all(diag_too == (merged and ti < tj == nt - 1) for ti, tj, diag_too in got)
+
+
+@pytest.mark.parametrize("k,tiles", [(129, [80, 1]), (160, [104, 6]), (161, [72, 40, 9]),
+                                     (200, [72, 80, 30]), (256, [72, 128, 72]),
+                                     (257, [128, 80, 80, 1]), (1000, None)])
+def test_mma_warp_tiles(k, tiles):
+    """The ``m16n8k8`` tiles of each unit of ``sandwich_mma<double>``: 16
+    rows by the even or odd 8 columns of a 16-column group, those that start
+    inside both tiles and, on a diagonal pair, whose group starts at or past
+    their first row; they cover every upper entry of the unit's pairs, and
+    the busy warps are at most eight, the four first in ascending order."""
+    per_unit = sk.mma_warp_tiles(k)
+    units = sk.mma_units(k)
+    assert len(per_unit) == len(units)
+    if tiles is not None:
+        assert [sum(w) for w in per_unit] == tiles
+    for (ti, tj, diag_too), warps in zip(units, per_unit):
+        kept = 0
+        for pi, pj in [(ti, tj)] + ([(ti, ti)] if diag_too else []):
+            wa = min(sk.WIDE_TILE, k - pi * sk.WIDE_TILE)
+            wb = min(sk.WIDE_TILE, k - pj * sk.WIDE_TILE)
+            pair = [(r, v) for r in range(0, wa, 16) for v in range(16)
+                    if 16 * (v // 2) + v % 2 < wb and (pi != pj or 16 * (v // 2) >= r)]
+            kept += len(pair)
+            covered = {(r + u, 16 * (v // 2) + 2 * c + v % 2)
+                       for r, v in pair for u in range(16) for c in range(8)}
+            upper = {(i, j) for i in range(wa) for j in range(wb) if pi != pj or i <= j}
+            assert upper <= covered
+        assert sum(warps) == kept and 1 <= len(warps) <= 8 and min(warps) >= 1
+        assert warps[:4] == sorted(warps[:4]) and warps[4:] == sorted(warps[4:], reverse=True)
+        assert all(max(warps[:4]) >= w for w in warps[4:])
+    if k == 160:  # the diagonal pair's six warp tiles and the narrow pair's two
+        assert sorted(per_unit[0]) == [6, 6, 14, 14, 16, 16, 16, 16]
+    if k == 1000:  # 21 full off-diagonal pairs, 7 beside the last tile of 104 columns
+        assert sum(map(sum, per_unit)) == 4032
+        assert [sum(w) for w in per_unit].count(128) == 21
+        assert [sum(w) for w in per_unit].count(8 * 14) == 7
+
+
+@pytest.mark.parametrize("k,busiest,staged", [(129, [20, 1], [129, 1]),
+                                              (160, [30, 6], [160, 32]),
+                                              (200, [20, 24, 14], [128, 200, 72]),
+                                              (256, [20, 32, 20], [128, 256, 128])])
+def test_mma_pair_costs(k, busiest, staged):
+    """A unit's cost a stage: 3 × the MMAs a k-step of its busiest
+    scheduler (warp w on w % 4), the stage's own cost, one a 16 columns it
+    stages."""
+    want = [3 * m + sk.MMA_STAGE_COST + -(-c // 16) for m, c in zip(busiest, staged)]
+    assert sk.mma_pair_costs(k) == want
+    for warps, m in zip(sk.mma_warp_tiles(k), busiest):
+        assert m == max(sum(warps[s::4]) for s in range(4))
+
+
+@pytest.mark.parametrize("k", [129, 160, 200, 256, 257, 1000])
+@pytest.mark.parametrize("n", [1, 100_003, 400_000, 1_000_000])
+@pytest.mark.parametrize("n_sm,per_sm", [(132, 1), (132, 2), (4, 1)])
+def test_mma_plan_fills_one_wave(n, k, n_sm, per_sm):
+    """The row split of ``sandwich_mma<double>``: one entry of the table a
+    tile pair, its splits; the splits fit one wave (one a pair once the
+    pairs alone fill it); a pair's split keeps its busiest scheduler about
+    as long in every pair, each split taking every S-th stage of 32 rows;
+    no pair could do with fewer splits and keep the least ``sched_rows``."""
+    costs = sk.mma_pair_costs(k)
+    wave = n_sm * per_sm
+    splits, per_pair = sk.mma_plan(n, k, n_sm, per_sm)
+    assert len(per_pair) == len(sk.mma_units(k))
+    sched_rows = sk._least_sched_rows(n, costs, wave)
+    rows = [sk._wide_rows(sched_rows, c) for c in costs]
+    assert list(per_pair) == [-(-n // r) for r in rows]
+    assert splits == max(per_pair) <= sk.MAX_SPLITS and min(per_pair) >= 1
+    assert sum(per_pair) <= wave or set(per_pair) == {1}
+    if sum(per_pair) <= wave and sched_rows > 1:
+        fewer = [-(-n // sk._wide_rows(sched_rows - 1, c)) for c in costs]
+        assert sum(fewer) > wave
+    stages = -(-n // sk.WIDE_ROWS)
+    for c, s in zip(costs, per_pair):  # the stages of a pair's busiest split
+        assert -(-stages // s) * sk.WIDE_ROWS * c <= sched_rows + c * sk.WIDE_ROWS
+
+
+@pytest.mark.parametrize("n,k", [(1, 129), (400_000, 160), (1_000_000, 129), (200_000, 1000),
+                                 (40_000, 2100), (40_000, 10_000)])
+def test_mma_blocks(n, k):
+    """The launch table of ``sandwich_mma<double>``: its count, then every
+    split of every unit once, a unit's splits together, the units in row
+    order within pairs of bands of 8 tiles; ``first_pass_args`` hands the
+    kernel its address on the device.  At ``sparse_wide``'s k the units
+    alone fill the wave, one split each."""
+    splits, table = sk.mma_blocks(n, k, 132, 1)
+    want_splits, per_pair = sk.mma_plan(n, k, 132, 1)
+    assert splits == want_splits and table[0] == len(table) - 1 == sum(per_pair)
+    units = sk.mma_units(k)
+    decoded = [(e >> 48, (e >> 32) & 0x7FFF, bool(e >> 47 & 1), (e >> 16) & 0xFFFF, e & 0xFFFF)
+               for e in table[1:]]
+    assert sorted(decoded) == sorted(
+        (ti, tj, diag_too, s, S) for (ti, tj, diag_too), S in zip(units, per_pair)
+        for s in range(S))
+    order = [(ti, tj) for ti, tj, _, s, _ in decoded if s == 0]
+    band = sk.MMA_BAND
+    assert order == sorted(order, key=lambda p: (p[0] // band, p[1] // band, p[0], p[1]))
+    for i, (ti, tj, diag_too, s, S) in enumerate(decoded):  # a unit's splits together
+        assert decoded[i - s] == (ti, tj, diag_too, 0, S)
+    got = sk.first_pass_args("sandwich_mma", n, k, 132, 1, torch.device("cpu"))
+    device_table = sk._on_device(table, torch.device("cpu"))
+    assert got == (splits, k * k, device_table.data_ptr())
+    assert device_table.dtype == torch.int64 and device_table.tolist() == list(table)
+    if k == 10_000:  # 79 tiles, the last of 16 columns: 78 diagonal pairs ride along
+        assert splits == 1 and table[0] == 3160 - 78
+
+
 @pytest.mark.parametrize("k", [200, 257])
 def test_wide_wrapper_matches_pallas_f32_interpret(k):
     """Row 1 past the triangle kernel's widths: the wrapper on CPU tensors

@@ -85,6 +85,22 @@ def test_kernel_phase_few_rows_on_cpu(capsys):
     assert "FAIL" not in out and out.count("sandwich_mma_tri<double>") >= 9
 
 
+def test_mma_phase_few_rows_on_cpu(capsys):
+    """The tensor-core kernel's row of phase 3: its few-row shapes and its
+    widths (odd ones and the 128-column tile's edges), each against the
+    plain version within the f64 limit."""
+    smoke = _chip_smoke()
+    fulls, widths = smoke.SANDWICH_CASES["sandwich_mma<double>"]
+    assert {rows for rows, _ in fulls} >= {1, 7, 40}
+    assert set(widths) >= {129, 137, 160, 200, 255, 256, 257, 1000, 1024}
+    cases = {"sandwich_mma<double>": (tuple((rows, k) for rows, k in fulls if rows < 100),
+                                      widths)}
+    assert smoke.phase_kernels(torch.device("cpu"), cases, 61, [(61, 1)]) == {
+        "sandwich_mma<double>": 0.0, "column_absmax": 0.0}
+    out = capsys.readouterr().out
+    assert "FAIL" not in out and out.count("sandwich_mma<double>") >= 12
+
+
 def test_dense_width_paths_on_cpu():
     """Paths (a) and (b), the narrow and wide dense designs, at cut-down rows."""
     smoke = _chip_smoke()
@@ -226,6 +242,33 @@ def test_time_sandwich_diagnose_cuts_match_the_source():
     source = (ROOT / "tabmat_torch" / "csrc" / "sandwich_mma_tri.cu").read_text()
     for old, _ in tool.DIAGNOSE_CUTS.values():
         assert source.count(old) == 1
+
+
+def test_time_sandwich_mma_cuts_match_the_source(monkeypatch):
+    """``--diagnose-mma`` replaces lines of ``sandwich_mma.cu`` that must be
+    there once each, and ``--blocks`` inserts its clocks at lines that must
+    be; ``--sass`` reads ``mma_partial``'s k-step loops by name; the tool
+    times the kernel at its five shapes."""
+    tool = _time_sandwich()
+    source = (ROOT / "tabmat_torch" / "csrc" / "sandwich_mma.cu").read_text()
+    for old, _ in tool.MMA_CUTS.values():
+        assert source.count(old) == 1
+    for anchor, _ in tool.BLOCK_CLOCK:  # --blocks inserts after (or before) each once
+        assert source.count(anchor) == 1
+    assert tool.DIAGNOSES["sandwich_mma<double>"][0] is tool.MMA_CUTS
+    assert {(n, k) for name, n, k in tool.CASES if name == "sandwich_mma<double>"} == {
+        (400_000, 160), (400_000, 200), (1_000_000, 129), (200_000, 1000), (40_000, 10_000),
+        (20_000, 10_000)}
+    body = ["        /*0100*/                   LDS.128 R4, [R2] ;",
+            "        /*0110*/                   DMUL R6, R4, R8 ;",
+            "        /*0120*/                   DMMA.16x8x8 R10, R4, R6, R10 ;",
+            "        /*0130*/               @!P0 BRA 0x100 ;"]
+    sass = "\n".join(["Function : _ZN12_GLOBAL__N_111mma_partialEPKdS1_PdxiPKxi", *body])
+    monkeypatch.setattr(tool._build, "nvcc_path", lambda: "cuda/bin/nvcc")
+    monkeypatch.setattr(tool.subprocess, "run",
+                        lambda *a, **k: type("Done", (), {"stdout": sass})())
+    assert tool.kstep_loops("lib.so") == {
+        "mma_partial": [{"LDS": 1, "DMUL": 1, "DMMA": 1, "BRA": 1}]}
 
 
 def test_time_sandwich_wide_cuts_match_the_source():

@@ -3,8 +3,10 @@
 
 Run from the repository root on a machine with a card:
 
-    python3 tools/time_sandwich.py [--reps 20] [--parent-cu PATH] [--sass]
-                                   [--diagnose | --diagnose-wide]
+    python3 tools/time_sandwich.py [--reps 20] [--parent-cu PATH]
+                                   [--parent-mma-cu PATH] [--sass]
+                                   [--diagnose | --diagnose-wide |
+                                    --diagnose-mma | --blocks]
 
 It builds ``csrc/sandwich.cu``, ``csrc/sandwich_narrow.cu``,
 ``csrc/sandwich_tri.cu``, ``csrc/sandwich_wide.cu``, ``csrc/sandwich_mma.cu``
@@ -16,8 +18,11 @@ max|S - P| / max|P| within ``chip_smoke.F64_TOL`` or ``chip_smoke.F32_TOL``,
 two launches equal bit for bit, S exactly symmetric; d has zeros and
 negatives) and times it against ``torch.einsum("ni,n,nj->ij")``.  The f64
 cases: ``sandwich_mma_tri<double>`` at the main path's 1M x 50 and at
-k = 33, 64, 100, 128 on 1M rows; ``sandwich_narrow<double>`` at 4M x 10 and
-``sandwich_mma<double>`` at 400k x 160 as controls.  The f32 cases:
+k = 33, 64, 100, 128 on 1M rows; ``sandwich_narrow<double>`` at 4M x 10 as
+a control; ``sandwich_mma<double>`` at 400k x 160, 400k x 200, 1M x 129
+(beside ``sandwich_mma_tri<double>`` at 1M x 128), 200k x 1000,
+40k x 10,000 (``sparse_wide``'s shape, dense) and 20k x 10,000 (one of the
+two row panels its sandwich runs as), these two at two repeats a turn.  The f32 cases:
 ``sandwich_tri<float>`` at 1M x 50 and 400k x 160 and at k = 33, 64, 100,
 176 on 1M rows; ``sandwich<float>`` at the same two shapes;
 ``sandwich_wide<float>`` at 400k x 200, 1M x 177, 200k x 1000 and 50k x 2048,
@@ -34,13 +39,20 @@ csrc/sandwich.cu``).  It is built with the same flags into
 ``tabmat_sandwich_f64`` beside ``sandwich_mma_tri<double>`` at 1M x 50 and
 1M x 100, its ``tabmat_sandwich_f32`` beside ``sandwich<float>`` at 1M x 50
 and 400k x 160, each with the row split of ``sandwich_kernel.launch_plan``.
+``--parent-mma-cu PATH`` does the same for a ``sandwich_mma.cu`` of another
+commit (``git show <commit>:tabmat_torch/csrc/sandwich_mma.cu``): its
+``tabmat_sandwich_mma_f64`` beside ``sandwich_mma<double>`` at each of its
+cases, with the row split of ``launch_plan`` (the 64 x 64 tile pairs'
+uniform split, which that kernel took).
 
 ``--sass`` disassembles the libraries with the toolkit's ``cuobjdump`` and
 prints, for each instantiation of ``sandwich_tri.cu``'s first pass and for
 ``sandwich_wide.cu``'s, the instructions of its row loop (the shortest loop
 that holds 64 FFMAs or more) by opcode, and for each instantiation of ``sandwich_mma_tri.cu``'s
-first pass each k-step loop (the innermost loops that hold a DMMA: one for
-each warp of a triangle group) by opcode, DMMA, LDS and DMUL first.
+first pass and for ``sandwich_mma.cu``'s each k-step loop (the innermost
+loops that hold a DMMA: one for each warp of a triangle group; the stage
+loop of the full and the masked warp tiles) by opcode, DMMA, LDS and DMUL
+first.
 
 ``--diagnose`` builds two copies of ``sandwich_mma_tri.cu`` with half of
 its work taken out (``DIAGNOSE_CUTS``: "copies only" drops the k-steps,
@@ -51,11 +63,25 @@ kernel and each copy back to back for two seconds while ``nvidia-smi``
 samples the SM clock and the power draw every 100 ms, and prints their
 median and least.  It prints this instead of the cases.
 
+``--diagnose-mma`` does the same for ``sandwich_mma.cu`` at 400k x 160,
+1M x 129 and 200k x 1000 with eight copies (``MMA_CUTS``): "copies only",
+"MMAs only", "full warp tiles" (every busy warp computes all 16 of its
+tiles), "no barrier" (the stage loop's barrier dropped: times only),
+"copies before the products" (the refill issued first), "k-steps in a
+loop" (not unrolled), "two stages of 48 rows" and "four stages of 24
+rows" (the same shared memory, one or three stages in flight).
+
 ``--diagnose-wide`` does the same for ``sandwich_wide.cu`` at the four
 shapes of its cases, with three copies (``WIDE_CUTS``): "copies only" (the
 products dropped), "FFMAs only" (the refills after the first two stages
 dropped) and "FFMAs without loads" (the row loop reads the same two rows at
 every turn, so its shared loads leave the loop).
+
+``--blocks`` builds a copy of ``sandwich_mma.cu`` whose blocks record their
+start and end on the card's clock (``BLOCK_CLOCK``) and prints, at the
+shapes of ``--diagnose-mma``, each unit's splits, stages and block times
+(the data ``sandwich_kernel.MMA_STAGE_COST`` was fitted to).  It prints
+this instead of the cases.
 
 Each case prints one JSON line: ``ms``, ``einsum_ms`` and ``parent_ms``
 (means of the two turns, and each turn), ``bound_ms``
@@ -89,12 +115,18 @@ SOURCES = ("sandwich", "sandwich_narrow", "sandwich_tri", "sandwich_wide", "sand
 WIDE_SHAPES = ((chip_smoke.WIDE_N, chip_smoke.F32_WIDE_K), (1_000_000, 177), (200_000, 1000),
                (50_000, 2048))
 MAIN_SHAPES = ((chip_smoke.N, chip_smoke.K), (chip_smoke.WIDE_N, chip_smoke.WIDE_K))
+# sandwich_mma<double>: the f64 steps of the wide dense paths (4b, 4d), the
+# route's edge, a wide design, sparse_wide's densified shape and one of the
+# two row panels its sandwich runs as
+SPARSE_WIDE = chip_smoke.SPARSE_SHAPES["sparse_wide"]
+MMA_SHAPES = ((chip_smoke.WIDE_N, chip_smoke.WIDE_K), (chip_smoke.WIDE_N, chip_smoke.F32_WIDE_K),
+              (1_000_000, 129), (200_000, 1000), SPARSE_WIDE, (SPARSE_WIDE[0] // 2, SPARSE_WIDE[1]))
 # (kernel, n, k)
 CASES = (
     [("sandwich_mma_tri<double>", chip_smoke.N, chip_smoke.K)]
     + [("sandwich_mma_tri<double>", 1_000_000, k) for k in (33, 64, 100, 128)]
-    + [("sandwich_narrow<double>", chip_smoke.NARROW_N, chip_smoke.NARROW_K),
-       ("sandwich_mma<double>", chip_smoke.WIDE_N, chip_smoke.WIDE_K)]
+    + [("sandwich_narrow<double>", chip_smoke.NARROW_N, chip_smoke.NARROW_K)]
+    + [("sandwich_mma<double>", n, k) for n, k in MMA_SHAPES]
     + [("sandwich_tri<float>", n, k) for n, k in MAIN_SHAPES]
     + [("sandwich_tri<float>", 1_000_000, k) for k in (33, 64, 100, 176)]
     + [("sandwich<float>", n, k) for n, k in MAIN_SHAPES]
@@ -106,6 +138,8 @@ CASES = (
 PARENT_CASES = {("sandwich_mma_tri<double>", 1_000_000, 50),
                 ("sandwich_mma_tri<double>", 1_000_000, 100)}
 PARENT_CASES |= {("sandwich<float>", n, k) for n, k in MAIN_SHAPES}
+# cases of a few hundred ms a call: two repeats a turn
+SLOW_CASES = {("sandwich_mma<double>", n, k) for n, k in MMA_SHAPES[-2:]}
 
 
 def ptxas_lines(log: str) -> list:
@@ -161,15 +195,19 @@ def row_loops(so: str) -> dict:
 
 def kstep_loops(so: str) -> dict:
     """``{instantiation: [Counter of opcodes]}`` of the k-step loops of each
-    ``mma_tri_partial<C>`` in the library ``so``: the loops that hold a DMMA
-    and hold no smaller loop that does."""
+    ``mma_tri_partial<C>`` and of ``mma_partial`` in the library ``so``: the
+    loops that hold a DMMA and hold no smaller loop that does."""
     found = {}
     for head, code in _functions(so):
         name = re.search(r"mma_tri_partialILi(\d+)E", head)
-        if name is None:
+        if name is not None:
+            label = f"mma_tri_partial<{name.group(1)}>"
+        elif "mma_partial" in head:
+            label = "mma_partial"
+        else:
             continue
         with_dmma = [loop for loop in _loops(code) if loop[2]["DMMA"]]
-        found[f"mma_tri_partial<{name.group(1)}>"] = [
+        found[label] = [
             body for first, last, body in with_dmma
             if not any(first <= f2 and l2 <= last and (f2, l2) != (first, last)
                        for f2, l2, _ in with_dmma)]
@@ -194,28 +232,33 @@ def _library_of(source: str, name: str, label: str) -> ctypes.CDLL:
         for line in ptxas_lines(proc.stdout + proc.stderr):
             print(f"  {line}")
     lib = ctypes.CDLL(str(so))
-    for symbol in ("tabmat_sandwich_f64", "tabmat_sandwich_f32", "tabmat_sandwich_mma_tri_f64"):
+    # the row argument is a count or (this tree's sandwich_mma.cu) a
+    # table's address: 64 bits either way
+    for symbol in ("tabmat_sandwich_f64", "tabmat_sandwich_f32", "tabmat_sandwich_mma_tri_f64",
+                   "tabmat_sandwich_mma_f64"):
         if hasattr(lib, symbol):
             getattr(lib, symbol).argtypes = sk._SANDWICH_ARGTYPES
     if hasattr(lib, "tabmat_sandwich_wide_f32"):
         lib.tabmat_sandwich_wide_f32.argtypes = sk._WIDE_ARGTYPES
     for symbol in ("tabmat_sandwich_blocks_per_sm", "tabmat_sandwich_mma_tri_blocks_per_sm",
-                   "tabmat_sandwich_wide_blocks_per_sm"):
+                   "tabmat_sandwich_wide_blocks_per_sm", "tabmat_sandwich_mma_blocks_per_sm"):
         if hasattr(lib, symbol):
             getattr(lib, symbol).argtypes = [ctypes.c_int, ctypes.c_void_p]
     return lib
 
 
-def parent_kernel(cu: Path):
-    """``sandwich(X, d)`` through the ``tabmat_sandwich_f64`` or
-    ``tabmat_sandwich_f32`` (by X's dtype) of another commit's
-    ``sandwich.cu``, built here with this tree's flags and headers."""
-    lib = _library_of(cu.read_text(), "parent_sandwich", f"parent {cu}")
+def parent_kernel(cu: Path, source: str = "sandwich"):
+    """``sandwich(X, d)`` through another commit's ``csrc/<source>.cu``,
+    built here with this tree's flags and headers, with the row split of
+    ``sandwich_kernel.launch_plan``: for ``sandwich`` its
+    ``tabmat_sandwich_f64`` or ``tabmat_sandwich_f32`` (by X's dtype), for
+    ``sandwich_mma`` its ``tabmat_sandwich_mma_f64``."""
+    lib = _library_of(cu.read_text(), f"parent_{source}", f"parent {cu}")
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     blocks = {}
-    for is_f64 in (0, 1):
+    for is_f64 in (0, 1) if source == "sandwich" else (1,):
         count = ctypes.c_int(0)
-        if lib.tabmat_sandwich_blocks_per_sm(is_f64, ctypes.byref(count)) != 0:
+        if getattr(lib, f"tabmat_{source}_blocks_per_sm")(is_f64, ctypes.byref(count)) != 0:
             raise RuntimeError("the parent's occupancy query failed")
         blocks[is_f64] = max(1, count.value)
 
@@ -225,7 +268,8 @@ def parent_kernel(cu: Path):
         splits, rows_per_split = sk.launch_plan(n, k, n_sm, blocks[is_f64])
         out = torch.empty((k, k), dtype=X.dtype, device=X.device)
         partial = torch.empty((splits, k, k), dtype=X.dtype, device=X.device)
-        fn = lib.tabmat_sandwich_f64 if is_f64 else lib.tabmat_sandwich_f32
+        fn = (lib.tabmat_sandwich_mma_f64 if source == "sandwich_mma" else
+              lib.tabmat_sandwich_f64 if is_f64 else lib.tabmat_sandwich_f32)
         err = fn(X.data_ptr(), d.data_ptr(), out.data_ptr(), partial.data_ptr(), n, k, splits,
                  rows_per_split, 0, torch.cuda.current_stream().cuda_stream)
         if err != 0:
@@ -253,10 +297,44 @@ WIDE_CUTS = {
     "FFMAs without loads": ("    xa += 2 * TILE;\n    xa2 += 2 * TILE;\n    xb += 2 * TILE;\n"
                             "    xb2 += 2 * TILE;\n", ""),
 }
+# --diagnose-mma: the same for sandwich_mma.cu
+MMA_CUTS = {
+    "copies only": ("    stage_products_for(pattern, acc, a_slot(st) + a_off,\n"
+                    "                       (on_diag_pair ? a_slot(st) : b_slot(st)) + b_off, "
+                    "w_slot(st) + t);\n", ""),
+    "MMAs only": ("    if (st + STAGES - 1 < stages) issue(st + STAGES - 1);\n", ""),
+    # every busy warp computes all 16 tiles of its warp tile (the extra ones
+    # are never written)
+    "full warp tiles": ("      pattern = patterns[j];\n", "      pattern = FULL_TILES;\n"),
+    # the loop's barrier dropped (the stages race: times only)
+    "no barrier": ("    __syncthreads();\n    stage_products_for(", "    stage_products_for("),
+    # a stage's refill issued before its products, not after
+    "copies before the products": (
+        "    stage_products_for(pattern, acc, a_slot(st) + a_off,\n"
+        "                       (on_diag_pair ? a_slot(st) : b_slot(st)) + b_off, w_slot(st) + t);\n"
+        "    // the refill after the products, so that they start on the stage first\n"
+        "    if (st + STAGES - 1 < stages) issue(st + STAGES - 1);\n    commit();\n",
+        "    if (st + STAGES - 1 < stages) issue(st + STAGES - 1);\n    commit();\n"
+        "    stage_products_for(pattern, acc, a_slot(st) + a_off,\n"
+        "                       (on_diag_pair ? a_slot(st) : b_slot(st)) + b_off, w_slot(st) + t);\n"),
+    # the k-steps of a stage in a loop, not unrolled: a quarter of the code
+    "k-steps in a loop": ("#pragma unroll\n  for (int ks = 0; ks < ROWS / KSTEP; ++ks) {\n",
+                          "#pragma unroll 1\n  for (int ks = 0; ks < ROWS / KSTEP; ++ks) {\n"),
+    # the same shared memory in two stages of 48 rows: one in flight
+    "two stages of 48 rows": ("constexpr int ROWS = 32;               // rows of X a stage\n"
+                              "constexpr int STAGES = 3;\n",
+                              "constexpr int ROWS = 48;\nconstexpr int STAGES = 2;\n"),
+    # the same shared memory in four stages of 24 rows: three in flight
+    "four stages of 24 rows": ("constexpr int ROWS = 32;               // rows of X a stage\n"
+                               "constexpr int STAGES = 3;\n",
+                               "constexpr int ROWS = 24;\nconstexpr int STAGES = 4;\n"),
+}
+MMA_DIAGNOSE_SHAPES = ((chip_smoke.WIDE_N, chip_smoke.WIDE_K), (1_000_000, 129), (200_000, 1000))
 # the kernel each diagnosis takes apart -> (its cuts, its shapes)
 DIAGNOSES = {
     "sandwich_mma_tri<double>": (DIAGNOSE_CUTS, DIAGNOSE_SHAPES),
     "sandwich_wide<float>": (WIDE_CUTS, WIDE_SHAPES),
+    "sandwich_mma<double>": (MMA_CUTS, MMA_DIAGNOSE_SHAPES),
 }
 
 
@@ -290,6 +368,80 @@ def cut_kernel(name: str, label: str):
         return out
 
     return run
+
+
+# --blocks: sandwich_mma.cu with each block's start and end on the card's
+# clock (globaltimer, ns) recorded by thread 0, read back after the launch:
+# (the line after which it goes, what goes there)
+BLOCK_CLOCK = (
+    ("__global__ void __launch_bounds__(THREADS, 1)\nmma_partial(",
+     "__device__ long long block_clock[1 << 18];\n__device__ __forceinline__ long long now_ns() {\n"
+     "  long long t;\n  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t));\n  return t;\n}\n"),
+    ("  double* smem = reinterpret_cast<double*>(smem_raw);\n", "  const long long t_start = now_ns();\n"),
+    ("  wait_copies<0>();\n",
+     "  __syncthreads();\n  if (threadIdx.x == 0) {\n    block_clock[4 * L] = t_start;\n"
+     "    block_clock[4 * L + 1] = now_ns();\n"
+     "    block_clock[4 * L + 2] = (long long)ti << 16 | tj | (with_diag ? 1 << 15 : 0);\n"
+     "    block_clock[4 * L + 3] = stages;\n  }\n"),
+    ("const char* tabmat_cuda_error_string",
+     "int read_block_clock(long long* host, long long count) {\n"
+     "  return (int)cudaMemcpyFromSymbol(host, block_clock, count * sizeof(long long));\n}\n\n"),
+)
+
+
+def block_times(device, card: str) -> None:
+    """``--blocks``: one launch of ``sandwich_mma.cu``, its blocks timed on
+    the card's clock, at each shape of ``MMA_DIAGNOSE_SHAPES``; one JSON line
+    for each of the first eight units (``sandwich_kernel.mma_units``):
+    splits, stages of its longest split, its blocks' least and most µs and
+    ns a stage; the span of the launch."""
+    text = (_build.CSRC / "sandwich_mma.cu").read_text()
+    for anchor, extra in BLOCK_CLOCK:
+        if text.count(anchor) != 1:
+            raise RuntimeError(f"{anchor!r} is not in sandwich_mma.cu once")
+        at = text.index(anchor) + (len(anchor) if not anchor.startswith(("__global__", "const char"))
+                                   else 0)
+        text = text[:at] + extra + text[at:]
+    lib = _library_of(text, "clocked_sandwich_mma", "sandwich_mma.cu, clocked")
+    lib.read_block_clock.argtypes = [ctypes.c_void_p, ctypes.c_longlong]
+    count = ctypes.c_int(0)
+    if lib.tabmat_sandwich_mma_blocks_per_sm(1, ctypes.byref(count)) != 0:
+        raise RuntimeError("the occupancy query failed")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device=device).manual_seed(9)
+    for n, k in MMA_DIAGNOSE_SHAPES:
+        X = torch.randn(n, k, device=device, dtype=torch.float64, generator=gen)
+        d = torch.rand(n, device=device, dtype=torch.float64, generator=gen)
+        splits, size, table = sk.first_pass_args("sandwich_mma", n, k, n_sm, max(1, count.value),
+                                                 device)
+        out = torch.empty((k, k), dtype=X.dtype, device=device)
+        partial = torch.empty((splits, size), dtype=X.dtype, device=device)
+        for _ in range(3):  # the last launch's clocks are kept
+            err = lib.tabmat_sandwich_mma_f64(X.data_ptr(), d.data_ptr(), out.data_ptr(),
+                                              partial.data_ptr(), n, k, splits, table, 0,
+                                              torch.cuda.current_stream().cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"the clocked kernel failed: CUDA error {err}")
+        torch.cuda.synchronize()
+        _, entries = sk.mma_blocks(n, k, n_sm, max(1, count.value))
+        clock = torch.zeros(4 * entries[0], dtype=torch.int64)
+        if lib.read_block_clock(clock.data_ptr(), clock.numel()) != 0:
+            raise RuntimeError("reading the block clocks failed")
+        clock = clock.view(-1, 4)
+        t0 = int(clock[:, 0].min())
+        print(json.dumps({"blocks": "sandwich_mma<double>", "n": n, "k": k,
+                          "span_us": (int(clock[:, 1].max()) - t0) / 1e3, "card": card}))
+        costs = sk.mma_pair_costs(k)
+        splits_of = sk.mma_plan(n, k, n_sm, max(1, count.value))[1]
+        for u, (ti, tj, diag_too) in enumerate(sk.mma_units(k)[:8]):
+            mine = clock[clock[:, 2] == (ti << 16 | tj | (1 << 15 if diag_too else 0))]
+            us = (mine[:, 1] - mine[:, 0]).double() / 1e3
+            stages = int(mine[:, 3].max())
+            print(json.dumps({"unit": [ti, tj, diag_too], "cost": costs[u], "splits": splits_of[u],
+                              "stages": stages, "us_least": float(us.min()),
+                              "us_most": float(us.max()),
+                              "ns_a_stage": 1e3 * float(us.max()) / max(stages, 1)}))
+        del X, d, partial
 
 
 def _sustained(fn, seconds: float = 2.0) -> dict:
@@ -391,10 +543,13 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--reps", type=int, default=20)
     parser.add_argument("--parent-cu", type=Path, default=None)
+    parser.add_argument("--parent-mma-cu", type=Path, default=None)
     parser.add_argument("--sass", action="store_true")
     which = parser.add_mutually_exclusive_group()
     which.add_argument("--diagnose", action="store_true")
     which.add_argument("--diagnose-wide", action="store_true")
+    which.add_argument("--diagnose-mma", action="store_true")
+    which.add_argument("--blocks", action="store_true")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("time_sandwich: no CUDA card", file=sys.stderr)
@@ -408,7 +563,8 @@ def main() -> int:
         print(f"{name}.cu built in {info['seconds']} s (None: reused)")
         for line in ptxas_lines(info["log"]):
             print(f"  {line}")
-    for name, is_f64 in (("sandwich_tri", 0), ("sandwich_wide", 0), ("sandwich_mma_tri", 1)):
+    for name, is_f64 in (("sandwich_tri", 0), ("sandwich_wide", 0), ("sandwich_mma_tri", 1),
+                         ("sandwich_mma", 1)):
         blocks = ctypes.c_int(0)
         err = getattr(sk._library(name), f"tabmat_{name}_blocks_per_sm")(is_f64,
                                                                          ctypes.byref(blocks))
@@ -421,15 +577,22 @@ def main() -> int:
             print(f"{name} row loop: {total} instructions, {ops['FFMA']} FFMA "
                   f"({ops['FFMA'] / total:.3f}), {ops['LDS']} LDS, {ops['FMUL']} FMUL; "
                   f"{dict(ops.most_common())}")
-        for name, loops in kstep_loops(_build.build_info["sandwich_mma_tri"]["path"]).items():
+        for name, loops in {**kstep_loops(_build.build_info["sandwich_mma_tri"]["path"]),
+                            **kstep_loops(_build.build_info["sandwich_mma"]["path"])}.items():
             for ops in loops:
                 print(f"{name} k-step loop: {sum(ops.values())} instructions, {ops['DMMA']} DMMA, "
                       f"{ops['LDS']} LDS, {ops['DMUL']} DMUL; {dict(ops.most_common())}")
-    if args.diagnose or args.diagnose_wide:
+    if args.blocks:
+        block_times(device, card)
+        return 0
+    if args.diagnose or args.diagnose_wide or args.diagnose_mma:
         diagnose(device, args.reps, card,
-                 "sandwich_wide<float>" if args.diagnose_wide else "sandwich_mma_tri<double>")
+                 "sandwich_wide<float>" if args.diagnose_wide else
+                 "sandwich_mma<double>" if args.diagnose_mma else "sandwich_mma_tri<double>")
         return 0
     parent = None if args.parent_cu is None else parent_kernel(args.parent_cu)
+    parent_mma = (None if args.parent_mma_cu is None else
+                  parent_kernel(args.parent_mma_cu, "sandwich_mma"))
     gen = torch.Generator(device=device).manual_seed(8)
     ok = True
     for name, n, k in CASES:
@@ -438,8 +601,10 @@ def main() -> int:
         d = torch.randn(n, device=device, dtype=dtype, generator=gen)
         d[::5] = 0.0
         yardstick = sk.sandwich_tiled if name == "sandwich_wide<float>" else (
+            parent_mma if name == "sandwich_mma<double>" else
             parent if (name, n, k) in PARENT_CASES else None)
-        ok &= held(name, sk.KERNEL_WRAPPERS[name], X, d, args.reps, card, yardstick)
+        reps = 2 if (name, n, k) in SLOW_CASES else args.reps
+        ok &= held(name, sk.KERNEL_WRAPPERS[name], X, d, reps, card, yardstick)
         del X, d
     return 0 if ok else 1
 
