@@ -29,8 +29,11 @@ Phases, each printed as it runs:
    176/177 (f32); the range prepass
    ``column_absmax``; the gather at 1,000,000 rows (codes with sentinels, a
    stack of two categoricals, and sorted bounds), exactly equal; the segment
-   sum at W in {1, 7, 1000, 10^6} segments, 1-D and 5 columns, with
-   sentinels and empty segments; the sparse segment product on the CSR and
+   sum at 1,000,000 and 100,003 rows, W in {1, 7, 1000, the stacked plan of
+   two 1000-level categoricals (2000), 10^6} segments and a plan whose rows
+   all fall in one row tile, m in {1, 5, 8, 9, 50} columns, with sentinels
+   and empty segments, through both of its routes (``segsum<T>`` and
+   ``segsum_slots<T>``); the sparse segment product on the CSR and
    CSC layouts of the reference's three sparse shapes (400,000 x 100,
    3,000,000 x 3 and 40,000 x 10,000, all at 1%), the pair plan and the
    stacked (code, column) plan of the sparse main path and its sparse x
@@ -75,7 +78,8 @@ Phases, each printed as it runs:
 8. times from CUDA events after warm-up: each kernel, its plain version and
    the one PyTorch call that computes the same function (``torch.einsum``
    for the sandwiches, cuSPARSE through ``torch.sparse_csr_tensor`` for the
-   sparse product), the sandwich kernels at 1M x 50, 1M x 5, 4M x 10,
+   sparse product, ``bincount`` and ``index_add_`` for the segment sum at
+   the mixed step's three shapes), the sandwich kernels at 1M x 50, 1M x 5, 4M x 10,
    400k x 160, 400k x 200, 1M x 177, 1M x 129, 200k x 1000 (f32 and f64)
    and ``sparse_wide``'s panels, and one
    ``irls_step`` on each path in each inner precision, with the kernel
@@ -87,7 +91,7 @@ wide paths and the mixed and sparse paths' 5-column dense cell the width
 dispatch's kernels, the sparse main path both sparse products), and no
 path may launch ``sandwich<double>`` or ``sandwich<float>``.  Any failed
 check raises, so the script exits 0 only when every check passed.  The last
-three lines are the ``kernels`` JSON object (fifteen instantiations),
+three lines are the ``kernels`` JSON object (seventeen instantiations),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 Without CUDA it exits non-zero and prints no result.
 """
@@ -137,7 +141,11 @@ SLAB = 200  # columns of sparse_wide's S held against scipy on the host
 # the mixed design of bench.py:360-371: 5 dense columns and two 1000-level
 # categoricals, so the cat x cat cell has 10^6 segments
 MIX_KD, MIX_LEVELS = 5, 1000
-SEG_WS = (1, 7, 1000, 1_000_000)
+# the segment sum's plans ("stacked": two MIX_LEVELS categoricals stacked,
+# the mixed design's tmv plan) and column counts (the cat x dense cells'
+# dense width, 8 and 9 at the column group's edge, a wide active set)
+SEG_WS = (1, 7, 1000, "stacked", 1_000_000)
+SEG_MS = (1, 5, 8, 9, 50)
 # the reference's sparse designs (tabmat_tpu/bench/generate.py:71-73), all
 # at 1%, and the sparse block of the sparse main path (bench.py:282: 100
 # columns at 1%) over that path's 1,000,000 rows
@@ -197,6 +205,9 @@ KERNELS = {
     "gather<float>": ("tabmat_torch/csrc/gather.cu", "tabmat_tpu/ops/pallas_gather.py:89"),
     "segsum<double>": ("tabmat_torch/csrc/segsum.cu", "tabmat_tpu/ops/pallas_segsum_bucketed.py:64"),
     "segsum<float>": ("tabmat_torch/csrc/segsum.cu", "tabmat_tpu/ops/pallas_segsum.py:97"),
+    "segsum_slots<double>": ("tabmat_torch/csrc/segsum.cu",
+                             "tabmat_tpu/ops/pallas_segsum_bucketed.py:64"),
+    "segsum_slots<float>": ("tabmat_torch/csrc/segsum.cu", "tabmat_tpu/ops/pallas_segsum.py:97"),
     "spmv<double>": ("tabmat_torch/csrc/spmv.cu", "tabmat_tpu/ops/pallas_tmv_fused.py:179"),
     "spmv<float>": ("tabmat_torch/csrc/spmv.cu", "tabmat_tpu/ops/pallas_tmv_fused.py:179"),
 }
@@ -205,9 +216,12 @@ NARROW_KERNELS = ("sandwich_narrow<double>", "sandwich_narrow<float>", "column_a
 WIDE_KERNELS = ("sandwich_mma<double>", "sandwich_tri<float>", "column_absmax")
 F32_WIDE_KERNELS = ("sandwich_mma<double>", "sandwich_wide<float>", "column_absmax")
 SPARSE_KERNELS = ("spmv<double>", "spmv<float>")
+# the segment sum's two routes: the stacked plan's tmv, diagonal and cat x
+# dense cells take the tiles route, the 10^6-cell cat x cat plan the slots
+SEGSUM_KERNELS = ("segsum<double>", "segsum<float>", "segsum_slots<double>",
+                  "segsum_slots<float>")
 # the mixed path's 5-column dense cell takes the narrow kernel
-MIXED_KERNELS = NARROW_KERNELS + ("gather<double>", "gather<float>", "segsum<double>",
-                                  "segsum<float>")
+MIXED_KERNELS = NARROW_KERNELS + ("gather<double>", "gather<float>") + SEGSUM_KERNELS
 
 # the least time for a function: its bytes over the memory rate, or its
 # operations over the peak rate for the type, whichever is larger (H100 SXM
@@ -382,18 +396,43 @@ def phase_kernels(device, cases=None, edge_n: int = EDGE_N, absmax_shapes=None) 
     return max_abs
 
 
-def phase_cat_kernels(device, n: int, seg_ws=SEG_WS, levels: int = MIX_LEVELS) -> dict:
+def segsum_plan(rng, n: int, W, device, levels: int = MIX_LEVELS):
+    """A plan of phase 3's segment sums on n rows: W segments with a third
+    of the rows sentinels and two segments empty; ``"stacked"``, the stacked
+    plan of two ``levels``-level categoricals (2 * levels segments), as the
+    mixed design builds it; ``"one_tile"``, ``levels`` segments over rows
+    that all fall in the kernel's first row tile, whatever its rows."""
+    from tabmat_torch.ops import segsum_kernel as ssk
+    from tabmat_torch.ops.segments import build_plan, stack
+
+    if W == "stacked":
+        return stack([build_plan(rng.integers(-1, levels, n), levels, device) for _ in range(2)])
+    if W == "one_tile":
+        keys = rng.integers(0, levels, n)
+        keys[ssk.MIN_TILE_ROWS:] = -1
+        return build_plan(keys, levels, device)
+    keys = rng.integers(-1, W, n)
+    if W > 2:
+        keys[np.isin(keys, [0, W // 2])] = -1  # empty segments
+    keys[: n // 3] = -1  # a run of sentinels
+    return build_plan(keys, W, device)
+
+
+def phase_cat_kernels(device, n: int, seg_ws=SEG_WS, levels: int = MIX_LEVELS,
+                      seg_ms=SEG_MS, edge_n: int = EDGE_N) -> dict:
     """The gather and the segment sum against their plain versions; returns
-    max|kernel - plain| by instantiation over all cases."""
+    max|kernel - plain| by instantiation over all cases.  The segment sum
+    runs on n and ``edge_n`` rows at each of ``seg_ws`` (and a one-tile
+    plan) and each of ``seg_ms`` columns; each case is attributed to the
+    route it launched (on the CPU, to ``segsum<T>``)."""
     from tabmat_torch.ops import gather_kernel as gk
     from tabmat_torch.ops import segsum_kernel as ssk
-    from tabmat_torch.ops.segments import build_plan
 
     print(f"[3] gather and segment sum vs plain on {device}", flush=True)
     rng = np.random.default_rng(11)
-    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
-    max_abs = {name: 0.0 for name in ("gather<double>", "gather<float>",
-                                      "segsum<double>", "segsum<float>")}
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    max_abs = {name: 0.0 for name in ("gather<double>", "gather<float>") + SEGSUM_KERNELS}
     # sentinels: -1 (missing), -2 (drop_first of a missing), past the end
     codes = rng.integers(-2, levels + 3, n).astype(np.int32)
     # two categoricals stacked as the design stacks them: the second offset
@@ -421,32 +460,37 @@ def phase_cat_kernels(device, n: int, seg_ws=SEG_WS, levels: int = MIX_LEVELS) -
             err = float((got - want).abs().max())
             max_abs[name] = max(max_abs[name], err)
             _check(f"{name} {label} max|diff|", err, 0.0)
-    for W in seg_ws:
-        keys = rng.integers(-1, W, n)
-        if W > 2:
-            keys[np.isin(keys, [0, W // 2])] = -1  # empty segments
-        keys[: n // 3] = -1  # a run of sentinels
-        plan = build_plan(keys, W, device)
-        for m in (1, 5):
-            shape = (n,) if m == 1 else (n, m)
-            values = rng.standard_normal(shape) * np.exp(rng.uniform(-3, 3, shape))
-            for dtype, tol in ((torch.float64, F64_TOL), (torch.float32, F32_TOL)):
-                name = f"segsum<{'double' if dtype == torch.float64 else 'float'}>"
-                v = torch.as_tensor(values, dtype=dtype, device=device)
-                before = ssk.launches[name]
-                first = ssk.segsum(v, plan)
-                second = ssk.segsum(v, plan)
-                if device.type == "cuda" and ssk.launches[name] != before + 2:
-                    raise AssertionError(f"{name} W={W} m={m} launched no kernel")
-                want = ssk.segsum_plain(v, plan.perm, plan.bounds)
-                scale = ssk.segsum_plain(v.abs().double(), plan.perm, plan.bounds)
-                sync()
-                if not torch.equal(first, second):
-                    raise AssertionError(f"{name} W={W} m={m}: two launches differ")
-                diff = (first.double() - want.double()).abs()
-                max_abs[name] = max(max_abs[name], float(diff.max()))
-                rel = float((diff / scale.clamp_min(torch.finfo(torch.float64).tiny)).max())
-                _check(f"{name} W={W} m={m} max|diff|/sum|v| (repeats exactly)", rel, tol)
+    gen = torch.Generator(device=device).manual_seed(11)
+    for rows in (n, edge_n):
+        for W in tuple(seg_ws) + ("one_tile",):
+            plan = segsum_plan(rng, rows, W, device, levels)
+            for m in seg_ms:
+                shape = (rows,) if m == 1 else (rows, m)
+                values = (torch.randn(shape, dtype=torch.float64, device=device, generator=gen)
+                          * torch.empty(shape, dtype=torch.float64, device=device)
+                          .uniform_(-3, 3, generator=gen).exp())
+                for dtype, tol in ((torch.float64, F64_TOL), (torch.float32, F32_TOL)):
+                    T = "double" if dtype == torch.float64 else "float"
+                    v = values.to(dtype)
+                    before = dict(ssk.launches)
+                    first = ssk.segsum(v, plan)
+                    second = ssk.segsum(v, plan)
+                    rose = [k for k in before if ssk.launches[k] != before[k]]
+                    if on_card and (len(rose) != 1 or ssk.launches[rose[0]] != before[rose[0]] + 2):
+                        raise AssertionError(f"segsum<{T}> W={W} m={m}: launches {rose}")
+                    name = rose[0] if on_card else f"segsum<{T}>"
+                    want = ssk.segsum_plain(v, plan.perm, plan.bounds)
+                    scale = ssk.segsum_plain(v.abs().double(), plan.perm, plan.bounds)
+                    sync()
+                    if not torch.equal(first, second):
+                        raise AssertionError(f"{name} W={W} m={m}: two launches differ")
+                    diff = (first.double() - want.double()).abs()
+                    max_abs[name] = max(max_abs[name], float(diff.max()))
+                    rel = float((diff / scale.clamp_min(torch.finfo(torch.float64).tiny)).max())
+                    _check(f"{name} {rows} rows W={W} m={m} max|diff|/sum|v| (repeats exactly)",
+                           rel, tol)
+                    del v, first, second, want, scale, diff
+                del values
     return max_abs
 
 
@@ -920,6 +964,16 @@ def spmv_bound(plan, a, values, scale):
     return bound(n_bytes, 2 * E * m + (0 if scale is None else E))
 
 
+def segsum_bound(plan, values):
+    """``(bound_ms, bound_by)`` of one segment sum: the plan's perm and
+    bounds and ``values`` read once, the (W, m) output written once; an add
+    per element and column."""
+    size = values.element_size()
+    m = 1 if values.ndim == 1 else values.shape[1]
+    E, W = plan.perm.numel(), plan.num_segments
+    return bound(E * 4 + values.numel() * size + (W + 1) * 4 + W * m * size, E * m)
+
+
 # the case whose times stand for spmv<T> in the kernels line: row 15's
 # function, the CSC transpose-matvec of the reference's 400k x 100 design
 ROW15_CASE = "sparse 400000x100 CSC tmv"
@@ -1041,32 +1095,33 @@ def phase_times(device, n: int, k: int, card: str, mixed: dict, sparse: dict,
                            (C - 1) * n_rows)
         times[f"gather<{suffix}>"] = t
 
-        # segsum<T>: the stacked tmv / sandwich diagonal (W = 2000, m = 1);
-        # then the cat x dense cells (m = 5) and the cat x cat cell (W = 10^6)
+        # the segment sum at the mixed step's three shapes: the stacked tmv
+        # and sandwich diagonal (W = 2000, m = 1) and cat x dense cells
+        # (m = 5) through segsum<T>, the cat x cat cell (W = 10^6) through
+        # segsum_slots<T>; the first and the last stand in the kernels line
         plan = cat.plan
         r = torch.randn(n_rows, device=device, dtype=dtype, generator=gen)
         r2 = r.repeat(2)
-        t = _compare(f"segsum<{suffix}> stacked W={width} m=1", card,
-                     lambda: ssk.segsum(r, plan),
-                     lambda: ssk.segsum_plain(r, plan.perm, plan.bounds),
-                     lambda: torch.bincount(codes2, weights=r2, minlength=width + 1))
-        E = plan.perm.shape[0]
-        t["bound"] = bound(E * 4 + n_rows * size + (width + 1) * 4 + width * size, E)
-        times[f"segsum<{suffix}>"] = t
         wX = torch.randn(n_rows, MIX_KD, device=device, dtype=dtype, generator=gen)
         wX2 = wX.repeat(2, 1)
-        _compare(f"segsum<{suffix}> stacked W={width} m={MIX_KD}", card,
-                 lambda: ssk.segsum(wX, plan),
-                 lambda: ssk.segsum_plain(wX, plan.perm, plan.bounds),
-                 lambda: torch.zeros(width + 1, MIX_KD, device=device, dtype=dtype)
-                 .index_add_(0, codes2, wX2))
         xplan = cat.cross[(0, 1)]
         xcodes = (cat.codes[:n_rows].long() * cat.widths[1] + cat.codes[n_rows:].long()
                   - cat.widths[0])
-        _compare(f"segsum<{suffix}> cross W={xplan.num_segments} m=1", card,
-                 lambda: ssk.segsum(r, xplan),
-                 lambda: ssk.segsum_plain(r, xplan.perm, xplan.bounds),
-                 lambda: torch.bincount(xcodes, weights=r, minlength=xplan.num_segments))
+        shapes = (
+            (f"segsum<{suffix}>", f"stacked W={width} m=1", plan, r,
+             lambda: torch.bincount(codes2, weights=r2, minlength=width + 1)),
+            (f"segsum<{suffix}> m={MIX_KD}", f"stacked W={width} m={MIX_KD}", plan, wX,
+             lambda: torch.zeros(width + 1, MIX_KD, device=device, dtype=dtype)
+             .index_add_(0, codes2, wX2)),
+            (f"segsum_slots<{suffix}>", f"cross W={xplan.num_segments} m=1", xplan, r,
+             lambda: torch.bincount(xcodes, weights=r, minlength=xplan.num_segments)),
+        )
+        for key, label, p, v, library in shapes:
+            t = _compare(f"segsum {suffix} {label}", card, lambda: ssk.segsum(v, p),
+                         lambda: ssk.segsum_plain(v, p.perm, p.bounds), library)
+            t["bound"] = segsum_bound(p, v)
+            print(f"    bound {t['bound'][0]:.6f} ms by {t['bound'][1]}")
+            times[key] = t
         del wX, wX2, r, r2
 
     # spmv<T>: every shape of the sparse product; the library call is the
@@ -1179,7 +1234,7 @@ def main() -> int:
                          must_launch=("sandwich_mma<double>",))
     sparse = run_main_path("sparse main path", phase_mixed_path, N, MIX_KD, MIX_LEVELS,
                            sparse=block, fit_steps=SPARSE_FIT_STEPS,
-                           must_launch=SPARSE_KERNELS + NARROW_KERNELS[:2])
+                           must_launch=SPARSE_KERNELS + NARROW_KERNELS[:2] + SEGSUM_KERNELS)
     # the tiled kernels are off every route: phase 3 holds them, no path runs them
     for tiled in ("sandwich<double>", "sandwich<float>"):
         if any(counts[tiled] for counts in main_launches):

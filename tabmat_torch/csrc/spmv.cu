@@ -64,7 +64,7 @@
 //   for enough blocks (shapes chosen on the card among 4-5 candidates each;
 //   the odd item counts keep the threads' strided reads of the stage off
 //   one bank).  This answers the three costs of the chunk walk it replaces
-//   (segment_walk.cuh, which segsum.cu keeps): a thread's serial chain of
+//   (segsum.cu's walk before it took row tiles): a thread's serial chain of
 //   bound loads and zero stores over empty segments, the 16-element stride
 //   between the lanes' loads, and a log2 W binary search in every thread.
 //

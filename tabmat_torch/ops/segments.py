@@ -16,8 +16,6 @@ version for a CPU plan.  The reference differenced a cumsum at the bounds;
 the port sums each segment directly, so no error grows with the prefix.
 """
 
-import functools
-
 import numpy as np
 import torch
 
@@ -29,7 +27,10 @@ class SegmentPlan:
     """Reduction plan for a fixed integer key array, on one device.
 
     ``tables`` holds what a CUDA kernel derives from the layout alone, built
-    on the card at its first call (the sparse product's tile starts).
+    on the card at its first call: the sparse product's tile starts, and the
+    segment sum's row-tile layout (the elements sorted by tile of rows, a
+    local row and a segment or slot each; ``segsum_kernel.tile_layout`` and
+    ``slot_layout``).
     """
 
     def __init__(self, perm: torch.Tensor, bounds: torch.Tensor, n_rows: int):
@@ -38,13 +39,6 @@ class SegmentPlan:
         self.num_segments = bounds.shape[0] - 1
         self.n_rows = n_rows
         self.tables = {}
-
-    @functools.cached_property
-    def spanning(self) -> torch.Tensor:
-        """The segments the CUDA segment sum's second pass joins, found at
-        its first call (a host-side ``nonzero``); the sparse product needs
-        none."""
-        return segsum_kernel.spanning_segments(self.bounds)
 
     @property
     def device(self) -> torch.device:

@@ -11,6 +11,9 @@ Whether a card is present is decided inside the fixture, never at import,
 so every pytest-xdist worker collects the same tests.
 """
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -331,31 +334,60 @@ def test_gather_matches_plain_exactly(cuda, C, dtype):
     assert torch.equal(gk.gather(table[:0], codes, n), torch.zeros_like(got))
 
 
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
-@pytest.mark.parametrize("m", [1, 5, 11])
-@pytest.mark.parametrize("W", [1, 7, 1000, 300_000])
-def test_segsum_matches_plain_and_repeats(cuda, W, m, dtype):
-    from tabmat_torch.ops import segsum_kernel as ssk
-    from tabmat_torch.ops.segments import build_plan
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
-    rng = np.random.default_rng(W + m)
-    n = 200_003
-    keys = rng.integers(-1, W, n)
-    if W > 2:
-        keys[np.isin(keys, [0, W // 2])] = -1  # empty segments
-    keys[: n // 3] = -1  # a run of sentinels
-    plan = build_plan(keys, W, cuda)
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("m", [1, 5, 8, 9, 50])
+@pytest.mark.parametrize("W", [1, 7, 1000, "stacked", 1_000_000, "one_tile"])
+@pytest.mark.parametrize("n", [100_003, 1_000_000])
+def test_segsum_matches_plain_and_repeats(cuda, n, W, m, dtype):
+    """chip_smoke.py's phase-3 plans: sentinels and empty segments, the
+    stacked plan of two 1000-level categoricals, 10^6 segments (the slots
+    route) and rows that all fall in one tile."""
+    from tabmat_torch.ops import segsum_kernel as ssk
+
+    rng = np.random.default_rng(m + (0 if isinstance(W, str) else W))
+    plan = _chip_smoke().segsum_plan(rng, n, W, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(m)
     shape = (n,) if m == 1 else (n, m)
-    v = torch.as_tensor(rng.standard_normal(shape), dtype=dtype, device=cuda)
-    name = f"segsum<{'double' if dtype == torch.float64 else 'float'}>"
-    before = ssk.launches[name]
+    v = torch.randn(shape, dtype=dtype, device=cuda, generator=gen)
+    before = dict(ssk.launches)
     first, second = ssk.segsum(v, plan), ssk.segsum(v, plan)
-    assert ssk.launches[name] == before + 2
+    rose = {k: ssk.launches[k] - before[k] for k in before if ssk.launches[k] != before[k]}
+    T = "double" if dtype == torch.float64 else "float"
+    assert rose in ({f"segsum<{T}>": 2}, {f"segsum_slots<{T}>": 2})
+    if W == 1_000_000:
+        assert rose == {f"segsum_slots<{T}>": 2}
+    if W == "stacked" and n == 1_000_000:
+        assert rose == {f"segsum<{T}>": 2}
     assert torch.equal(first, second)
     want = ssk.segsum_plain(v, plan.perm, plan.bounds)
     scale = ssk.segsum_plain(v.abs().double(), plan.perm, plan.bounds).clamp_min(1e-300)
     rel = float(((first.double() - want.double()).abs() / scale).max())
     assert rel <= TOL[dtype]
+
+
+@pytest.mark.parametrize("m", [1, 5])
+def test_segsum_of_a_view_off_16_bytes(cuda, m):
+    """Values one element into their storage: the tiles take cp.async
+    copies instead of the bulk ones, and the sums stay the same."""
+    from tabmat_torch.ops import segsum_kernel as ssk
+
+    rng = np.random.default_rng(m)
+    n = 100_003
+    plan = _chip_smoke().segsum_plan(rng, n, "stacked", cuda)
+    gen = torch.Generator(device=cuda).manual_seed(m)
+    base = torch.randn((n + 1) * m, dtype=torch.float64, device=cuda, generator=gen)
+    v = base[m:].view(n, m) if m > 1 else base[1:]
+    assert v.data_ptr() % 16 != 0 and v.is_contiguous()
+    got = ssk.segsum(v, plan)
+    assert torch.equal(got, ssk.segsum(v.clone(), plan))
 
 
 def _spmv_layout(rng, lengths, n_src, cuda):

@@ -173,11 +173,188 @@ def test_wrappers_do_not_fall_back():
         segsum_kernel.segsum(torch.zeros(4, dtype=torch.float64), build_plan(np.zeros(3), 1, CPU))
 
 
-def test_spanning_segments():
-    """The segments the CUDA kernel's second pass joins: exactly those whose
-    elements lie in more than one chunk."""
-    C = segsum_kernel.CHUNK
-    bounds = torch.tensor([0, 3, 3, C, C + 1, 3 * C + 2, 3 * C + 2], dtype=torch.int32)
-    assert segsum_kernel.spanning_segments(bounds).tolist() == [4]
-    bounds = torch.tensor([0, C + 1, C + 1, 2 * C], dtype=torch.int32)
-    assert segsum_kernel.spanning_segments(bounds).tolist() == [0]
+def _decode_tiles(layout):
+    """(tile, segment, local row, padding) of each position of a tiles-route
+    layout."""
+    off = layout["tile_off"].long()
+    tile = torch.repeat_interleave(torch.arange(off.shape[0] - 1), off[1:] - off[:-1])
+    words = layout["words"].long()
+    row = words >> 16
+    return tile, words & 0xFFFF, row, row == layout["R"]
+
+
+def _layout_plans(rng, n, W):
+    """A plan with sentinels, the stacked plan of two categoricals, and one
+    whose rows all fall in tile 0 (rows past 300 are sentinels)."""
+    keys = _keys(rng, n, W, missing=0.3)
+    single = build_plan(keys, W, CPU)
+    stacked = stack([single, build_plan(_keys(rng, n, W), W, CPU)])
+    low = keys.copy()
+    low[300:] = -1
+    return {"sentinels": single, "stacked": stacked, "one_tile": build_plan(low, W, CPU)}
+
+
+def _plan_pairs(plan):
+    seg = torch.repeat_interleave(torch.arange(plan.num_segments), plan.bounds.diff().long())
+    return seg, plan.perm.long()
+
+
+@pytest.mark.parametrize("R", [1, 7, 512, 4096])
+@pytest.mark.parametrize("W", [1, 7, 300])
+@pytest.mark.parametrize("which", ["sentinels", "stacked", "one_tile"])
+def test_tile_layout_holds_each_element_once_in_tile_order(which, W, R):
+    """The tiles route's layout: every element of the plan once, tiles in
+    order, (segment, row) order inside a tile, local rows below R, and
+    padding to a multiple of ITEMS that reads the zero row R and keeps the
+    tile's last segment."""
+    rng = np.random.default_rng(W * 7 + R)
+    n = 3001
+    plan = _layout_plans(rng, n, W)[which]
+    layout = segsum_kernel.tile_layout(plan, R)
+    off = layout["tile_off"].long()
+    assert off.shape[0] == -(-n // R) + 1 and off[0] == 0
+    assert bool((off % segsum_kernel.ITEMS == 0).all()) and bool((off.diff() >= 0).all())
+    tile, seg, row, pad = _decode_tiles(layout)
+    real = ~pad
+    assert bool((row[real] < R).all())
+    grow = tile * R + row
+    # the plan's (segment, row) pairs, each once; sentinel rows in none
+    got = sorted(zip(seg[real].tolist(), grow[real].tolist()))
+    want = sorted(zip(*(x.tolist() for x in _plan_pairs(plan))))
+    assert got == want
+    # inside a tile, (segment, row) increases; padding repeats the last segment
+    key = tile * (1 << 40) + seg * (1 << 20) + grow
+    same_tile = tile[1:] == tile[:-1]
+    assert bool((key[1:][same_tile & real[1:]] > key[:-1][same_tile & real[1:]]).all())
+    assert bool((seg[1:][pad[1:]] == seg[:-1][pad[1:]]).all())
+    assert int(pad.sum()) < segsum_kernel.ITEMS * (off.shape[0] - 1)
+    if which == "one_tile" and R >= 300:
+        assert int((off.diff() > 0).sum()) == 1
+    if which == "stacked":  # both copies of a row in its one tile
+        first, second = plan.perm[: plan.perm.shape[0] // 2], plan.perm[plan.perm.shape[0] // 2:]
+        assert set(first.tolist()) | set(second.tolist()) == set(grow[real].tolist())
+
+
+@pytest.mark.parametrize("R", [1, 64, 4096])
+@pytest.mark.parametrize("W", [1, 7, 3001])
+@pytest.mark.parametrize("which", ["sentinels", "stacked", "one_tile"])
+def test_slot_layout_puts_a_segments_slots_together_in_tile_order(which, W, R):
+    """The slots route's layout: one slot per (tile, segment) run, a
+    segment's slots together from ``slot_bounds[s]`` in tile order, and the
+    same element order, rows and padding as the tiles route."""
+    rng = np.random.default_rng(W * 11 + R)
+    n = 3001
+    plan = _layout_plans(rng, n, W)[which]
+    layout = segsum_kernel.slot_layout(plan, R)
+    off = layout["tile_off"].long()
+    tile = torch.repeat_interleave(torch.arange(off.shape[0] - 1), off[1:] - off[:-1])
+    row, slots = layout["rows"].long(), layout["slots"].long()
+    sb = layout["slot_bounds"].long()
+    assert sb.shape[0] == plan.num_segments + 1 and sb[0] == 0
+    assert sb[-1] == layout["n_slots"] == int(slots.unique().numel())
+    seg = torch.searchsorted(sb, slots, right=True) - 1  # the segment of each slot
+    pad = row == R
+    real = ~pad
+    got = sorted(zip(seg[real].tolist(), (tile * R + row)[real].tolist()))
+    assert got == sorted(zip(*(x.tolist() for x in _plan_pairs(plan))))
+    # a run's elements share its slot; slots increase inside a tile
+    runs = {}
+    for t, s, k in zip(tile.tolist(), seg.tolist(), slots.tolist()):
+        assert runs.setdefault((t, s), k) == k
+    ordered = sorted(runs.items(), key=lambda item: item[1])
+    assert [key for key, _ in ordered] == sorted(runs, key=lambda ts: (ts[1], ts[0]))
+    # the tiles route sees the same elements in the same places
+    if plan.num_segments <= 1 << 16:
+        twin = segsum_kernel.tile_layout(plan, R)
+        assert torch.equal(twin["tile_off"], layout["tile_off"])
+        assert torch.equal(twin["words"].long() >> 16, row)
+        assert torch.equal(twin["words"].long() & 0xFFFF, seg)
+
+
+def _emulate(values, plan, route, R, blocks):
+    """Passes 1 and 2 on the layout in plain torch: a tile's runs summed
+    from its staged rows (padding reads a zero row), blocks over contiguous
+    tile ranges; the tiles route adds each run to its block's accumulator
+    and sums the blocks in order, the slots route writes each run to its
+    slot and sums each segment's slots in order."""
+    n, m = values.shape
+    W = plan.num_segments
+    tiles = -(-n // R)
+    layout = (segsum_kernel.tile_layout if route == "tiles" else segsum_kernel.slot_layout)(
+        plan, R)
+    off = layout["tile_off"].long()
+    tile = torch.repeat_interleave(torch.arange(tiles), off[1:] - off[:-1])
+    if route == "tiles":
+        row, key = layout["words"].long() >> 16, layout["words"].long() & 0xFFFF
+    else:
+        row, key = layout["rows"].long(), layout["slots"].long()
+    staged = torch.cat([values, values.new_zeros(1, m)])
+    grow = torch.where(row == R, n, tile * R + row)
+    terms = staged[grow]
+    # block b owns tiles [b·T/B, (b+1)·T/B)
+    block = torch.searchsorted(torch.arange(blocks + 1) * tiles // blocks, tile, right=True) - 1
+    if route == "tiles":
+        partial = torch.zeros(blocks * W, m, dtype=values.dtype)
+        partial.index_add_(0, block * W + key, terms)
+        return partial.view(blocks, W, m).sum(0)
+    slot_val = torch.zeros(layout["n_slots"], m, dtype=values.dtype)
+    slot_val.index_add_(0, key, terms)
+    sb = layout["slot_bounds"].long()
+    return torch.stack([slot_val[sb[s]:sb[s + 1]].sum(0) for s in range(W)])
+
+
+@pytest.mark.parametrize("route", ["tiles", "slots"])
+@pytest.mark.parametrize("m", [1, 5, 9])
+@pytest.mark.parametrize("W", [1, 7, 2000, "n"])
+def test_row_tile_passes_equal_the_plain_sum(W, m, route):
+    """A plain-torch emulation of both passes on the layouts equals
+    ``segsum_plain`` to 1e-13 of each segment's sum of |v| (f64)."""
+    rng = np.random.default_rng(m)
+    n = 2503
+    W = n if W == "n" else W
+    plan = build_plan(_keys(rng, n, W, missing=0.2), W, CPU)
+    if W == 2000:  # the stacked plan of two 1000-level categoricals
+        plan = stack([build_plan(_keys(rng, n, 1000), 1000, CPU) for _ in range(2)])
+    v = torch.tensor(rng.standard_normal((n, m)) * np.exp(rng.uniform(-3, 3, (n, m))))
+    want = segsum_kernel.segsum_plain(v, plan.perm, plan.bounds)
+    scale = segsum_kernel.segsum_plain(v.abs(), plan.perm, plan.bounds).clamp_min(1e-300)
+    for R, blocks in ((64, 5), (1024, 2), (16384, 1)):
+        got = _emulate(v, plan, route, R, min(blocks, -(-n // R)))
+        assert float(((got - want).abs() / scale).max()) < 1e-13
+
+
+def test_route_choice():
+    """The tiles route with the widest column group and then the most rows a
+    tile whose block fits, where the blocks' partials are no more than the
+    elements; else the slots route.  At 1M rows on 132 SMs, two blocks an
+    SM; the stacked plan holds two elements a row."""
+    ssk = segsum_kernel
+    wave = lambda R, G: 264  # noqa: E731
+    n = 1_000_000
+    assert ssk.choose_route(2000, 1, 2 * n, n, 2, 8, 132, wave) == ("tiles", 1024, 1)
+    assert ssk.choose_route(2000, 5, 2 * n, n, 2, 8, 132, wave) == ("tiles", 1024, 5)
+    assert ssk.choose_route(2000, 9, 2 * n, n, 2, 8, 132, wave) == ("tiles", 512, 8)
+    assert ssk.choose_route(2000, 50, 2 * n, n, 2, 4, 132, wave) == ("tiles", 1024, 8)
+    assert ssk.choose_route(10**6, 1, n, n, 1, 8, 132, wave) == ("slots", 1024, 1)
+    assert ssk.choose_route(10**6, 50, n, n, 1, 4, 132, wave) == ("slots", 1024, 8)
+    assert ssk.choose_route(2000, 1, 100_000, 100_003, 1, 8, 132, wave) == ("slots", 1024, 1)
+    for W, m, size in ((2000, 5, 8), (2000, 9, 8), (1, 8, 4), (20_000, 1, 8)):
+        route, R, G = ssk.choose_route(W, m, 10 * n, n, 2, size, 132, wave)
+        assert route == "tiles" and 0 < G <= min(m, 8)
+        tpb, mt = ssk.tiles_per_block(n, R, 132), ssk.max_tile(2, R)
+        assert ssk.smem_bytes(R, G, W, size, False, tpb, mt) <= ssk.SMEM_MAX
+        low = ssk.MIN_TILE_ROWS
+        wider = ssk.smem_bytes(low, G + 1, W, size, False, tpb, ssk.max_tile(2, low))
+        assert G == min(m, 8) or wider > ssk.SMEM_MAX
+    assert ssk.tiles_per_block(n, 1024, 132) == 8 and ssk.tiles_per_block(100, 1024, 132) == 1
+    assert ssk.max_tile(2, 1024) == 2048 and ssk.max_tile(3, 5) == 16
+
+
+def test_layout_rejects_tiles_past_int16_rows():
+    plan = build_plan(np.arange(10) % 3, 3, CPU)
+    with pytest.raises(ValueError, match="R must"):
+        segsum_kernel.tile_layout(plan, segsum_kernel.MAX_TILE_ROWS + 1)
+    with pytest.raises(ValueError, match="R must"):
+        segsum_kernel.slot_layout(plan, 0)
+    with pytest.raises(ValueError, match="2\\^16"):
+        segsum_kernel.tile_layout(build_plan(np.arange(10), 70_000, CPU))

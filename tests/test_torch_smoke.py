@@ -65,8 +65,9 @@ def test_kernel_phase_on_cpu():
         "sandwich<double>", "sandwich<float>", "sandwich_narrow<double>",
         "sandwich_narrow<float>", "sandwich_tri<float>", "sandwich_wide<float>",
         "sandwich_mma<double>", "sandwich_mma_tri<double>", "column_absmax")}
-    # the kernels line lists fifteen instantiations, each timed in phase 8
-    assert len(smoke.KERNELS) == 15
+    # the kernels line lists seventeen instantiations (the segment sum's two
+    # routes in both types among them), each timed in phase 8
+    assert len(smoke.KERNELS) == 17
     assert set(smoke.SANDWICH_TIMES) | {"column_absmax"} <= set(smoke.KERNELS)
 
 
@@ -149,6 +150,35 @@ def test_sandwich_tables_name_the_routed_kernels():
     assert set(sk.launches) <= set(smoke.KERNELS)
 
 
+def test_cat_kernel_phase_on_cpu(capsys):
+    """Phase 3's gather and segment-sum cases at a small size: every plan
+    (sentinels, the stacked plan, 10^6 segments cut down to n, one tile)
+    at every column count, equal to the plain version on the CPU; the
+    segment sum's four instantiations are named and listed."""
+    from tabmat_torch.ops import segsum_kernel as ssk
+
+    smoke = _chip_smoke()
+    max_abs = smoke.phase_cat_kernels(torch.device("cpu"), 3000,
+                                      seg_ws=(1, 7, 100, "stacked", 3000), levels=50,
+                                      seg_ms=(1, 5, 9), edge_n=1001)
+    assert max_abs == dict.fromkeys(("gather<double>", "gather<float>")
+                                    + smoke.SEGSUM_KERNELS, 0.0)
+    out = capsys.readouterr().out
+    assert out.count("segsum<double> ") == out.count("segsum<float> ") == 2 * 6 * 3
+    assert set(ssk.launches) == set(smoke.SEGSUM_KERNELS) <= set(smoke.KERNELS)
+    assert set(smoke.SEGSUM_KERNELS) <= set(smoke.MIXED_KERNELS)
+
+
+def test_segsum_bound_counts_each_byte_once():
+    from tabmat_torch.ops.segments import build_plan
+
+    smoke = _chip_smoke()
+    plan = build_plan(np.arange(1000) % 7, 7, torch.device("cpu"))
+    v = torch.zeros(1000, 5, dtype=torch.float64)
+    n_bytes = 1000 * 4 + 1000 * 5 * 8 + 8 * 4 + 7 * 5 * 8
+    assert smoke.segsum_bound(plan, v) == (n_bytes / smoke.HBM_BYTES_PER_S * 1e3, "bytes")
+
+
 def test_numpy_irls_converges_to_least_squares():
     rng = np.random.default_rng(0)
     X = rng.standard_normal((400, 3))
@@ -171,6 +201,17 @@ def test_profile_tool_refuses_without_cuda(monkeypatch, capsys):
     spec.loader.exec_module(tool)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr(sys, "argv", ["profile_irls_step.py"])
+    assert tool.main() != 0
+    assert capsys.readouterr().out == ""
+
+
+def test_time_segsum_refuses_without_cuda(monkeypatch, capsys):
+    spec = importlib.util.spec_from_file_location("time_segsum",
+                                                  ROOT / "tools" / "time_segsum.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(sys, "argv", ["time_segsum.py", "--parent-cu", "build/parent"])
     assert tool.main() != 0
     assert capsys.readouterr().out == ""
 

@@ -30,6 +30,8 @@ each ``inner_precision`` it prints one JSON line:
   time), ``launches`` (``cudaLaunchKernel`` calls per step), ``launch_host_ms``
   (their host time per step) and the twelve kernels with the most device
   time (names cut to 120 characters);
+- ``tabmat_kernel_ms``: device ms per step of each hand-written kernel,
+  its instantiations together;
 - ``tabmat_launches``: launches per step of each hand-written kernel, from
   the wrappers' own counts.
 
@@ -86,7 +88,24 @@ def profile(step, steps: int = 10):
         "launches": sum(e.count for e in launch) / steps,
         "launch_host_ms": sum(e.self_cpu_time_total for e in launch) / 1e3 / steps,
         "top": [(name[:120], ms) for name, ms in sorted(kernels, key=lambda kv: -kv[1])[:12]],
+        "tabmat_kernel_ms": tabmat_kernel_ms(kernels),
     }, prof
+
+
+def tabmat_kernel_ms(kernels) -> dict:
+    """Device ms per step of each hand-written kernel (``segsum_tiles``,
+    ``segsum_join_blocks``, ...), all instantiations together: the kernels
+    of ``tabmat_torch/csrc`` live in an anonymous namespace or in
+    ``tabmat::``."""
+    out = {}
+    for key, ms in kernels:
+        found = [(key.find(space), space) for space in ("(anonymous namespace)::", "tabmat::")
+                 if space in key]
+        if found:
+            space = min(found)[1]
+            name = key.split(space, 1)[1].split("<")[0].split("(")[0]
+            out[name] = out.get(name, 0.0) + ms
+    return out
 
 
 def _kernel_modules():
