@@ -17,7 +17,9 @@ Phases, each printed as it runs:
    400,000 x 200, both at k in {1, 7, 50, 64, 100, 128, 200};
    ``sandwich_wide<float>`` at 400,000 x 200 and k in {177, 200, 255, 256,
    257, 1000, 1024}; ``sandwich_narrow<T>`` at
-   4,000,000 x 10 and k in {1, 2, 5, 10, 31, 32}; ``sandwich_tri<float>``
+   4,000,000 x 10 and k in {1, 2, 4, 5, 8, 9, 10, 11, 16, 17, 31, 32}
+   (whole rows a thread to 10; past it FP64 tensor-core tiles in f64 and
+   FFMA micro-tiles in f32; 100,003 rows end mid-stage); ``sandwich_tri<float>``
    at 1,000,000 x 50, 400,000 x 160 and k in {33, 50, 64, 100, 160, 176};
    ``sandwich_mma_tri<double>`` at 1,000,000 x 50, at 1, 7 and 40 rows and
    k in {33, 50, 64, 100, 127, 128}; ``sandwich_mma<double>`` at 400,000 x
@@ -115,14 +117,18 @@ WIDE_N, WIDE_K = 400_000, 160
 # past the triangle kernel's widths: the 4c and 4d phases and the times of
 # sandwich_wide<float> and sandwich<float>
 F32_WIDE_K = 200
+# the narrow kernel's widths where its plan changes: 16-, 8-byte and single
+# row loads of a thread's whole rows (k <= 10), then 2 to 4 column blocks of
+# 8 (f64 tensor-core tiles) or 3 to 8 micro-tiles of 4 a side (f32)
+NARROW_EDGE_KS = (1, 2, 4, 5, 8, 9, 10, 11, 16, 17, 31, 32)
 # sandwich kernel -> (its shapes, the first the full-size one of its row in
 # the kernels line; the widths it is held at on EDGE_N rows); the tiled
 # kernel takes any width, the wrappers launch it directly
 SANDWICH_CASES = {
     "sandwich<double>": (((N, K),), (1, 7, 50, 64, 100, 128, 200)),
     "sandwich<float>": (((WIDE_N, F32_WIDE_K),), (1, 7, 50, 64, 100, 128, 200)),
-    "sandwich_narrow<double>": (((NARROW_N, NARROW_K),), (1, 2, 5, 10, 31, 32)),
-    "sandwich_narrow<float>": (((NARROW_N, NARROW_K),), (1, 2, 5, 10, 31, 32)),
+    "sandwich_narrow<double>": (((NARROW_N, NARROW_K),), NARROW_EDGE_KS),
+    "sandwich_narrow<float>": (((NARROW_N, NARROW_K),), NARROW_EDGE_KS),
     "sandwich_tri<float>": (((N, K), (WIDE_N, WIDE_K)), (33, 50, 64, 100, 160, 176)),
     "sandwich_wide<float>": (((WIDE_N, F32_WIDE_K),), (177, 200, 255, 256, 257, 1000, 1024)),
     "sandwich_mma_tri<double>": (((N, K), (1, K), (7, 128), (40, 100)),
@@ -1029,7 +1035,8 @@ def phase_times(device, n: int, k: int, card: str, mixed: dict, sparse: dict,
                          lambda: sk.sandwich_plain(X, d),
                          lambda: torch.einsum("ni,n,nj->ij", X, d, X))
             t["bound"] = sandwich_bound(rows, cols, X.element_size())
-            print(f"    bound {t['bound'][0]:.6f} ms by {t['bound'][1]}")
+            print(f"    bound {t['bound'][0]:.6f} ms by {t['bound'][1]}; the kernel at "
+                  f"{t['bound'][0] / t['kernel']:.3f} of it")
             times[f"{name} {rows}x{cols}"] = t
             times.setdefault(name, t)
             del X, d

@@ -15,9 +15,13 @@ dtype:
   of ``pallas_sandwich_v4.py:_v4_kernel`` and
   ``pallas_sandwich_v5.py:_v5_kernel`` (G = ⌊128/k⌋), in f32
   ``pallas_kernels.py:_sandwich_kernel`` at these widths.  Bound by the
-  bytes of X (1 FLOP/byte at k = 10): a block owns every upper-triangle
-  entry in 4 × 4 register micro-tiles and reads X once, coalesced; the row
-  splits fill one wave.
+  bytes of X (1 FLOP/byte at k = 10): one block an SM (the row splits fill
+  one wave) streams its rows through eight stages of TMA bulk copies of X's
+  and d's row runs (:func:`narrow_stage_rows`); a thread sums whole rows
+  into all k(k+1)/2 entries at k ≤ 10; past it the f64 kernel takes the
+  upper triangle in ``m16n8k8`` FP64 tensor-core tiles, the f32 one in
+  4 × 4 FFMA micro-tiles.  One launch: the block that takes the last ticket
+  of a counter sums the splits in order (:func:`narrow_plan`, ``_tickets``).
 - ``sandwich_tri<float>`` (``csrc/sandwich_tri.cu``, f32 33 ≤ k ≤ 176):
   replaces ``pallas_kernels.py:_sandwich_kernel`` (``Precision.HIGHEST``)
   at these widths.  The narrow kernel's design with 8 × 8 micro-tiles: a
@@ -67,10 +71,11 @@ dtype:
 
 Hopper has native FP64, so every f64 kernel computes the function
 directly, without the TPU's planes; f32 uses FFMA, never TF32.  Each
-kernel sums its per-block partials in a second pass in a fixed order: no
-atomics, so results repeat bit for bit and S is exactly symmetric.  With
-``out=`` the second pass adds S into ``out``, so row panels of one product
-sum in order in one (k, k) buffer.  128 is where the JAX package leaves v4
+kernel sums its per-block partials in a second pass (the narrow kernel's
+last block) in a fixed order: no atomics in the sums, so results repeat bit
+for bit and S is exactly symmetric.  With ``out=`` the second pass adds S
+into ``out``, so row panels of one product sum in order in one (k, k)
+buffer.  128 is where the JAX package leaves v4
 for the pair kernels (``pallas_sandwich_v4.py:71``); 176 is the widest k
 whose upper 8 × 8 micro-tiles fit one 256-thread block.
 
@@ -105,6 +110,8 @@ launches = {
 TILE = 64  # the output tile of sandwich<T>
 ROWS = 32
 NARROW_MAX_K = 32
+NARROW_STAGE_BYTES = 24576  # X and d of one stage of sandwich_narrow<T>, at most
+NARROW_ROW_ALIGN = 4  # its stage rows and splits: copies with 16-byte ends
 TRI_MT = 8  # the micro-tile edge of sandwich_tri<float>
 TRI_MIN_K = 33  # the kernel is built for 5 to 22 micro-tiles a side
 TRI_MAX_K = 176  # 22 micro-tiles a side: 253 upper ones, one a thread of 256
@@ -126,6 +133,8 @@ _SANDWICH_ARGTYPES = [
 # sandwich_wide.cu takes a device table of rows a split, one a tile pair;
 # sandwich_mma.cu its launch table (mma_blocks)
 _WIDE_ARGTYPES = _SANDWICH_ARGTYPES[:7] + [ctypes.c_void_p] + _SANDWICH_ARGTYPES[8:]
+# sandwich_narrow.cu takes its ticket counter after the partials
+_NARROW_ARGTYPES = _SANDWICH_ARGTYPES[:4] + [ctypes.c_void_p] + _SANDWICH_ARGTYPES[4:]
 _TABLE_SOURCES = ("sandwich_wide", "sandwich_mma")
 _ABSMAX_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -146,6 +155,10 @@ _KERNELS = {
 }
 _libs: dict = {}
 _blocks_per_sm: dict = {}  # (source, dtype) -> resident first-pass blocks per SM
+# (device index, stream) -> sandwich_narrow<T>'s ticket counter: 0 between
+# launches (every launch leaves it at 0), one a stream, so no two launches
+# that can overlap share one
+_tickets: dict = {}
 
 
 def __getattr__(name):
@@ -218,10 +231,21 @@ def launch_plan(n: int, k: int, n_sm: int, blocks_per_sm: int):
     return _split_rows(n, n_sm * blocks_per_sm // pairs, ROWS)
 
 
+def narrow_stage_rows(k: int, size: int) -> int:
+    """Rows a stage of ``sandwich_narrow<T>`` (``stage_rows`` in the
+    source): the most whose X and d fit ``NARROW_STAGE_BYTES``, a multiple
+    of ``NARROW_ROW_ALIGN``, so both copies of a stage start and end on 16
+    bytes wherever X and d do.  ``size`` is the element's bytes."""
+    return NARROW_STAGE_BYTES // ((k + 1) * size) // NARROW_ROW_ALIGN * NARROW_ROW_ALIGN
+
+
 def narrow_plan(n: int, n_sm: int, blocks_per_sm: int):
     """Row split of ``sandwich_narrow<T>``: one block owns every entry, so
-    the splits alone fill one wave of resident blocks."""
-    return _split_rows(n, n_sm * blocks_per_sm, ROWS)
+    the splits alone fill one wave of resident blocks; each split is a
+    multiple of ``NARROW_ROW_ALIGN`` rows, so every stage but the matrix's
+    last is bulk-copied (its stages are :func:`narrow_stage_rows` each, its
+    last one shorter)."""
+    return _split_rows(n, n_sm * blocks_per_sm, NARROW_ROW_ALIGN)
 
 
 def tri_plan(n: int, n_sm: int, blocks_per_sm: int):
@@ -553,9 +577,21 @@ def _run_sandwich(name: str, X, d, out):
         if out is None:
             out = torch.empty((k, k), dtype=X.dtype, device=X.device)
         partial = torch.empty((splits, per_split), dtype=X.dtype, device=X.device)
-        _launch(lib, name, X, d.contiguous(), out, partial, n, k, splits, rows_per_split,
+        scratch = (partial,) if source != "sandwich_narrow" else (partial, _ticket(X.device))
+        _launch(lib, name, X, d.contiguous(), out, scratch, n, k, splits, rows_per_split,
                 int(accumulate))
     return out
+
+
+def _ticket(device) -> torch.Tensor:
+    """The ticket counter of ``sandwich_narrow<T>`` for the current stream of
+    ``device``: made 0 on that stream at its first use, and left 0 by every
+    launch."""
+    stream = torch.cuda.current_stream(device)
+    key = (device.index, stream.cuda_stream)
+    if key not in _tickets:
+        _tickets[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _tickets[key]
 
 
 def first_pass_args(source: str, n: int, k: int, n_sm: int, blocks_per_sm: int, device):
@@ -572,10 +608,10 @@ def first_pass_args(source: str, n: int, k: int, n_sm: int, blocks_per_sm: int, 
         splits, rows_per_split = tri_plan(n, n_sm, blocks_per_sm)
         size = (tri_partial_size if source == "sandwich_tri" else mma_tri_partial_size)(k)
         return splits, size, rows_per_split
-    if source == "sandwich_narrow":
+    if source == "sandwich_narrow":  # its partials: the k(k+1)/2 upper entries
         splits, rows_per_split = narrow_plan(n, n_sm, blocks_per_sm)
-    else:
-        splits, rows_per_split = launch_plan(n, k, n_sm, blocks_per_sm)
+        return splits, k * (k + 1) // 2, rows_per_split
+    splits, rows_per_split = launch_plan(n, k, n_sm, blocks_per_sm)
     return splits, k * k, rows_per_split
 
 
@@ -669,7 +705,7 @@ def column_absmax(X: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
         splits, rows_per_split = absmax_plan(n, k, n_sm)
         out = torch.empty(k, dtype=torch.float64, device=X.device)
         partial = torch.empty((splits, k), dtype=torch.float64, device=X.device)
-        _launch(lib, "column_absmax", X, d.contiguous(), out, partial, n, k, splits,
+        _launch(lib, "column_absmax", X, d.contiguous(), out, (partial,), n, k, splits,
                 rows_per_split)
     return out
 
@@ -681,7 +717,8 @@ def _library(source: str):
 
         signatures = {
             symbol: (_ABSMAX_ARGTYPES if name == "column_absmax" else
-                     _WIDE_ARGTYPES if src in _TABLE_SOURCES else _SANDWICH_ARGTYPES)
+                     _WIDE_ARGTYPES if src in _TABLE_SOURCES else
+                     _NARROW_ARGTYPES if src == "sandwich_narrow" else _SANDWICH_ARGTYPES)
             for name, (src, symbol) in _KERNELS.items() if src == source
         }
         signatures[f"tabmat_{source}_blocks_per_sm"] = [ctypes.c_int, ctypes.c_void_p]
@@ -695,11 +732,13 @@ def _raise_on(lib, err: int, source: str) -> None:
     _build.raise_on(lib, err, f"{source}.cu kernel")
 
 
-def _launch(lib, name, X, d, out, partial, n, k, splits, rows_per_split, *flags) -> None:
+def _launch(lib, name, X, d, out, scratch, n, k, splits, rows_per_split, *flags) -> None:
+    """Launch ``name`` on X's current stream; ``scratch`` are the tensors
+    its C function takes after ``out`` (the partials, a ticket counter)."""
     source, symbol = _KERNELS[name]
     stream = torch.cuda.current_stream(X.device).cuda_stream
     err = getattr(lib, symbol)(
-        X.data_ptr(), d.data_ptr(), out.data_ptr(), partial.data_ptr(),
+        X.data_ptr(), d.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in scratch),
         n, k, splits, rows_per_split, *flags, stream,
     )
     _raise_on(lib, err, source)

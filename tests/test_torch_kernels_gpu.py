@@ -72,12 +72,63 @@ def _held_against_plain(name, wrapper, X, d):
     assert torch.equal(out, S + 1)
 
 
+def _narrow_name(dtype):
+    return f"sandwich_narrow<{'double' if dtype == torch.float64 else 'float'}>"
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
-@pytest.mark.parametrize("k", [1, 2, 5, 10, 31, 32])
+@pytest.mark.parametrize("k", [1, 2, 4, 5, 8, 9, 10, 11, 12, 16, 17, 24, 25, 31, 32])
 def test_narrow_kernel_matches_plain(cuda, k, dtype):
+    """Every width where the plan changes: whole rows a thread at k <= 10
+    (16-, 8-byte and single row loads); past it 2 to 4 column blocks of 8
+    in FP64 tensor-core tiles (f64) and 3 to 8 micro-tiles of 4 a side
+    (f32), and past k = 15 the splits summed by several blocks; 100,003
+    rows end mid-stage; d has zeros and negatives."""
     X, d = _inputs(100_003, k, dtype, cuda, seed=k)
-    suffix = "double" if dtype == torch.float64 else "float"
-    _held_against_plain(f"sandwich_narrow<{suffix}>", sk.sandwich_narrow, X, d)
+    _held_against_plain(_narrow_name(dtype), sk.sandwich_narrow, X, d)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("k", [2, 5, 10, 32])
+@pytest.mark.parametrize("n", [1, 3, 4, 7, 1001])
+def test_narrow_kernel_few_rows(cuda, n, k, dtype):
+    """One row, fewer rows than one aligned run (4), and a single stage
+    that ends off 16 bytes (the threads copy it)."""
+    gen = torch.Generator(device=cuda).manual_seed(n + k)
+    X = torch.randn(n, k, device=cuda, dtype=dtype, generator=gen)
+    d = torch.rand(n, device=cuda, dtype=dtype, generator=gen) + 0.5
+    d[1::3] *= -1.0
+    d[2::5] = 0.0
+    _held_against_plain(_narrow_name(dtype), sk.sandwich_narrow, X, d)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("k", [5, 10, 32])
+def test_narrow_kernel_unaligned_rows(cuda, k, dtype):
+    """A contiguous X one element past a 16-byte boundary: every stage is
+    copied by the threads, and summed by the same code."""
+    X, d = _inputs(100_003, k, dtype, cuda, seed=k)
+    shifted = torch.empty(X.numel() + 1, device=cuda, dtype=dtype)[1:].view(X.shape)
+    shifted.copy_(X)
+    assert shifted.data_ptr() % 16 != 0 and shifted.is_contiguous()
+    _held_against_plain(_narrow_name(dtype), sk.sandwich_narrow, shifted, d)
+
+
+def test_narrow_kernel_leaves_its_tickets_at_zero(cuda):
+    """The last block sets the ticket counter back to 0, and a second stream
+    takes a counter of its own."""
+    X, d = _inputs(200_003, 5, torch.float64, cuda, seed=5)
+    S = sk.sandwich_narrow(X, d)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        S_side = sk.sandwich_narrow(X, d)
+    torch.cuda.synchronize()
+    assert torch.equal(S, S_side)
+    keys = [key for key in sk._tickets if key[0] == cuda.index]
+    assert len(keys) >= 2 and (torch.cuda.current_stream(cuda).cuda_stream in
+                               [key[1] for key in keys])
+    assert all(int(sk._tickets[key]) == 0 for key in keys)
 
 
 @pytest.mark.parametrize("k", [33, 49, 50, 63, 64, 65, 100, 128, 160, 175, 176])

@@ -150,13 +150,64 @@ def test_route(k, dtype):
 
 
 @pytest.mark.parametrize("n,n_sm,per_sm", [(4_000_000, 132, 3), (1_000_000, 132, 2), (17, 4, 1),
-                                          (10**9, 132, 3)])
+                                          (10**9, 132, 3), (1_000_000, 132, 1), (1, 132, 1),
+                                          (100_003, 132, 1), (4_000_000, 132, 1)])
 def test_narrow_plan_fills_one_wave(n, n_sm, per_sm):
+    """One wave of splits, never more; each a multiple of 4 rows, so its
+    stages start on 16 bytes; the splits cover the rows exactly once."""
     splits, rps = sk.narrow_plan(n, n_sm, per_sm)
     assert 1 <= splits <= min(n_sm * per_sm, sk.MAX_SPLITS)
     assert (splits - 1) * rps < n <= splits * rps  # every split has rows
+    assert rps % sk.NARROW_ROW_ALIGN == 0
+    covered = [min(rps, n - s * rps) for s in range(splits)]
+    assert min(covered) > 0 and sum(covered) == n
     if n >= 100 * n_sm * per_sm * sk.ROWS:
         assert splits >= 0.9 * n_sm * per_sm
+
+
+@pytest.mark.parametrize("size", [8, 4], ids=["f64", "f32"])
+@pytest.mark.parametrize("k", range(1, 33))
+def test_narrow_stage_rows(k, size):
+    """A stage of ``sandwich_narrow<T>``: the most rows whose X and d fit
+    its budget, a multiple of 4, so both copies of a stage have 16-byte
+    ends wherever X and d start on 16 bytes."""
+    rows = sk.narrow_stage_rows(k, size)
+    assert rows > 0 and rows % sk.NARROW_ROW_ALIGN == 0
+    assert rows * (k + 1) * size <= sk.NARROW_STAGE_BYTES
+    assert (rows + sk.NARROW_ROW_ALIGN) * (k + 1) * size > sk.NARROW_STAGE_BYTES
+    assert rows * k * size % 16 == 0 and rows * size % 16 == 0
+
+
+@pytest.mark.parametrize("size", [8, 4], ids=["f64", "f32"])
+@pytest.mark.parametrize("n,k", [(1_000_000, 5), (4_000_000, 10), (100_003, 1), (100_003, 32),
+                                 (7, 9), (1, 2)])
+def test_narrow_stages_cover_rows_once(n, k, size):
+    """The kernel's walk (``narrow_block``): split s takes rows [s · rps,
+    min((s + 1) · rps, n)) in stages of ``narrow_stage_rows``; every stage
+    but the matrix's last starts and ends both of its copies on 16 bytes
+    (X and d at 16-byte addresses), and the stages take each row once."""
+    splits, rps = sk.narrow_plan(n, 132, 1)
+    stage = sk.narrow_stage_rows(k, size)
+    seen = 0
+    for s in range(splits):
+        row0, row1 = s * rps, min((s + 1) * rps, n)
+        for a in range(row0, row1, stage):
+            rows = min(stage, row1 - a)
+            assert a == seen
+            seen += rows
+            ends = (a * k * size, (a + rows) * k * size, a * size, (a + rows) * size)
+            assert all(e % 16 == 0 for e in ends) or a + rows == n
+    assert seen == n
+
+
+@pytest.mark.parametrize("k", [1, 5, 10, 11, 32])
+def test_narrow_first_pass_args(k):
+    """``sandwich_narrow<T>``'s partials hold the k(k+1)/2 upper entries a
+    split; its rows a split come from :func:`narrow_plan`."""
+    splits, size, rows = sk.first_pass_args("sandwich_narrow", 1_000_000, k, 132, 1,
+                                            torch.device("cpu"))
+    assert (splits, rows) == sk.narrow_plan(1_000_000, 132, 1)
+    assert size == k * (k + 1) // 2
 
 
 @pytest.mark.parametrize("n", [1, 100_003, 1_000_000, 4_000_000])

@@ -4,22 +4,26 @@
 Run from the repository root on a machine with a card:
 
     python3 tools/time_sandwich.py [--reps 20] [--parent-cu PATH]
-                                   [--parent-mma-cu PATH] [--sass]
+                                   [--parent-mma-cu PATH]
+                                   [--parent-narrow-cu PATH] [--sass]
                                    [--diagnose | --diagnose-wide |
-                                    --diagnose-mma | --blocks]
+                                    --diagnose-mma | --diagnose-narrow |
+                                    --blocks]
 
 It builds ``csrc/sandwich.cu``, ``csrc/sandwich_narrow.cu``,
 ``csrc/sandwich_tri.cu``, ``csrc/sandwich_wide.cu``, ``csrc/sandwich_mma.cu``
 and ``csrc/sandwich_mma_tri.cu`` and prints what ``ptxas`` reported for each
 of their kernels (registers, shared memory, spills), and the first-pass
-blocks an SM holds at once of the triangle and wide kernels.  Then, for each case of
-``CASES``, it holds the kernel against ``sandwich_plain`` (relative error
-max|S - P| / max|P| within ``chip_smoke.F64_TOL`` or ``chip_smoke.F32_TOL``,
-two launches equal bit for bit, S exactly symmetric; d has zeros and
-negatives) and times it against ``torch.einsum("ni,n,nj->ij")``.  The f64
-cases: ``sandwich_mma_tri<double>`` at the main path's 1M x 50 and at
-k = 33, 64, 100, 128 on 1M rows; ``sandwich_narrow<double>`` at 4M x 10 as
-a control; ``sandwich_mma<double>`` at 400k x 160, 400k x 200, 1M x 129
+blocks an SM holds at once of the narrow, triangle and wide kernels.  Then,
+for each case of ``CASES``, it holds the kernel against ``sandwich_plain``
+(relative error max|S - P| / max|P| within ``chip_smoke.F64_TOL`` or
+``chip_smoke.F32_TOL``, two launches equal bit for bit, S exactly
+symmetric; d has zeros and negatives) and times it against
+``torch.einsum("ni,n,nj->ij")``.  The f64 cases:
+``sandwich_mma_tri<double>`` at the main path's 1M x 50 and at k = 33, 64,
+100, 128 on 1M rows; ``sandwich_narrow<double>`` at 4M x 10, 1M x 5
+(``NARROW_SHAPES``), 1M x 16 and 1M x 32; ``sandwich_mma<double>`` at
+400k x 160, 400k x 200, 1M x 129
 (beside ``sandwich_mma_tri<double>`` at 1M x 128), 200k x 1000,
 40k x 10,000 (``sparse_wide``'s shape, dense) and 20k x 10,000 (one of the
 two row panels its sandwich runs as), these two at two repeats a turn.  The f32 cases:
@@ -28,7 +32,7 @@ two row panels its sandwich runs as), these two at two repeats a turn.  The f32 
 ``sandwich_wide<float>`` at 400k x 200, 1M x 177, 200k x 1000 and 50k x 2048,
 each beside ``sandwich<float>`` (``sandwich_tiled``, the f32 kernel past 176
 before ``sandwich_wide.cu``, its source unchanged) as its parent;
-``sandwich_narrow<float>`` at 4M x 10.  Times are CUDA events over
+``sandwich_narrow<float>`` at the same four.  Times are CUDA events over
 ``--reps`` calls held back to back (``chip_smoke._time_ms``), in turns
 kernel, parent, einsum, einsum, parent, kernel.
 
@@ -44,6 +48,10 @@ commit (``git show <commit>:tabmat_torch/csrc/sandwich_mma.cu``): its
 ``tabmat_sandwich_mma_f64`` beside ``sandwich_mma<double>`` at each of its
 cases, with the row split of ``launch_plan`` (the 64 x 64 tile pairs'
 uniform split, which that kernel took).
+
+``--parent-narrow-cu PATH`` does the same for a ``sandwich_narrow.cu`` of
+another commit, beside ``sandwich_narrow<T>`` at each of its cases, with
+that design's own row split and second launch (``narrow_kernel``).
 
 ``--sass`` disassembles the libraries with the toolkit's ``cuobjdump`` and
 prints, for each instantiation of ``sandwich_tri.cu``'s first pass and for
@@ -77,6 +85,14 @@ products dropped), "FFMAs only" (the refills after the first two stages
 dropped) and "FFMAs without loads" (the row loop reads the same two rows at
 every turn, so its shared loads leave the loop).
 
+``--diagnose-narrow`` takes a ``sandwich_narrow.cu`` apart (this tree's, or
+``--parent-narrow-cu``'s) at ``NARROW_DIAGNOSE_SHAPES`` in both dtypes:
+"copies only" (no sums), "FFMAs only" (no refills past the first stages),
+"no second pass" (no ticket and no sum of the splits, or no second launch)
+beside the kernel and ``X.sum()`` in turns, and a copy that records each
+block's phases on the card's clock (``NARROW_CLOCK``): for each phase the
+median and the most over the blocks.  It prints this instead of the cases.
+
 ``--blocks`` builds a copy of ``sandwich_mma.cu`` whose blocks record their
 start and end on the card's clock (``BLOCK_CLOCK``) and prints, at the
 shapes of ``--diagnose-mma``, each unit's splits, stages and block times
@@ -99,6 +115,7 @@ import subprocess
 import sys
 import time
 from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -121,23 +138,32 @@ MAIN_SHAPES = ((chip_smoke.N, chip_smoke.K), (chip_smoke.WIDE_N, chip_smoke.WIDE
 SPARSE_WIDE = chip_smoke.SPARSE_SHAPES["sparse_wide"]
 MMA_SHAPES = ((chip_smoke.WIDE_N, chip_smoke.WIDE_K), (chip_smoke.WIDE_N, chip_smoke.F32_WIDE_K),
               (1_000_000, 129), (200_000, 1000), SPARSE_WIDE, (SPARSE_WIDE[0] // 2, SPARSE_WIDE[1]))
+# sandwich_narrow<T>: the narrow dense path (4M x 10) and the mixed and
+# sparse designs' 5-column dense cell (1M x 5)
+NARROW_SHAPES = ((chip_smoke.NARROW_N, chip_smoke.NARROW_K), (chip_smoke.N, chip_smoke.MIX_KD))
+# and past its whole-row widths: the f64 tensor-core tiles and f32 micro-tiles
+NARROW_WIDE_SHAPES = ((1_000_000, 16), (1_000_000, 32))
 # (kernel, n, k)
 CASES = (
     [("sandwich_mma_tri<double>", chip_smoke.N, chip_smoke.K)]
     + [("sandwich_mma_tri<double>", 1_000_000, k) for k in (33, 64, 100, 128)]
-    + [("sandwich_narrow<double>", chip_smoke.NARROW_N, chip_smoke.NARROW_K)]
+    + [("sandwich_narrow<double>", n, k) for n, k in NARROW_SHAPES + NARROW_WIDE_SHAPES]
     + [("sandwich_mma<double>", n, k) for n, k in MMA_SHAPES]
     + [("sandwich_tri<float>", n, k) for n, k in MAIN_SHAPES]
     + [("sandwich_tri<float>", 1_000_000, k) for k in (33, 64, 100, 176)]
     + [("sandwich<float>", n, k) for n, k in MAIN_SHAPES]
     + [("sandwich_wide<float>", n, k) for n, k in WIDE_SHAPES]
-    + [("sandwich_narrow<float>", chip_smoke.NARROW_N, chip_smoke.NARROW_K)]
+    + [("sandwich_narrow<float>", n, k) for n, k in NARROW_SHAPES + NARROW_WIDE_SHAPES]
 )
 # the cases the parent's sandwich.cu is timed beside (the wide kernel's
 # cases always beside this tree's sandwich<float>)
 PARENT_CASES = {("sandwich_mma_tri<double>", 1_000_000, 50),
                 ("sandwich_mma_tri<double>", 1_000_000, 100)}
 PARENT_CASES |= {("sandwich<float>", n, k) for n, k in MAIN_SHAPES}
+NARROW_DIAGNOSE_SHAPES = NARROW_SHAPES + NARROW_WIDE_SHAPES
+# the cases the parent's sandwich_narrow.cu is timed beside
+PARENT_NARROW_CASES = {(f"sandwich_narrow<{t}>", n, k) for t in ("double", "float")
+                       for n, k in NARROW_SHAPES + NARROW_WIDE_SHAPES}
 # cases of a few hundred ms a call: two repeats a turn
 SLOW_CASES = {("sandwich_mma<double>", n, k) for n, k in MMA_SHAPES[-2:]}
 
@@ -444,6 +470,222 @@ def block_times(device, card: str) -> None:
         del X, d, partial
 
 
+# --diagnose-narrow: a sandwich_narrow.cu with a part of its work taken out,
+# and one with each block's phases on the card's clock (globaltimer, ns,
+# recorded by thread 0: start, loop, copy issue and waits, sums, tail
+# start, its entries written, its ticket taken, end; the parent's block
+# ends where it writes its entries).  One table for each design, told apart
+# by its anchors: the parent's (two cp.async stages, a second launch) and
+# this tree's.
+PARENT_NARROW_CUTS = {
+    "copies only": ("    if (g < groups) {\n      for (int r = g; r < rows; r += groups) {\n",
+                    "    if (false) {\n      for (int r = g; r < rows; r += groups) {\n"),
+    # the refills after the first two stages dropped: sums on stale rows
+    "FFMAs only": ("      stage_rows(smem + ((st + 1) % STAGES) * STAGE_ELEMS, X, d,\n",
+                   "      if (st + 1 < STAGES)\n"
+                   "      stage_rows(smem + ((st + 1) % STAGES) * STAGE_ELEMS, X, d,\n"),
+    "no second pass": (
+        "  narrow_reduce<T><<<blocks, threads, 0, s>>>(partial, out, k, splits, accumulate);\n", ""),
+}
+CLOCK_WORDS = 8
+CLOCK_HELPERS = (f"__device__ long long phase_clock[{CLOCK_WORDS} * 8192];\n"
+                 "__device__ __forceinline__ long long now_ns() {\n  long long t;\n"
+                 "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t));\n  return t;\n}\n\n")
+CLOCK_READER = ("int read_phase_clock(long long* host, long long count) {\n"
+                "  return (int)cudaMemcpyFromSymbol(host, phase_clock, count * sizeof(long long));\n"
+                "}\n\n")
+
+
+def clock_record(finished: str, ticketed: str) -> str:
+    return (f"  if (threadIdx.x == 0) {{\n    long long* c = phase_clock + {CLOCK_WORDS} * blockIdx.x;\n"
+            "    c[0] = t_start;\n    c[1] = t_loop;\n    c[2] = t_wait;\n    c[3] = t_sum;\n"
+            f"    c[4] = t_tail;\n    c[5] = {finished};\n    c[6] = {ticketed};\n"
+            "    c[7] = now_ns();\n  }\n")
+# (old, new) replacements, each old text once in the source
+PARENT_NARROW_CLOCK = (
+    ("template <typename T>\n__global__ void __launch_bounds__(THREADS)\nnarrow_partial(",
+     CLOCK_HELPERS + "template <typename T>\n__global__ void __launch_bounds__(THREADS)\n"
+     "narrow_partial("),
+    ("  T* smem = reinterpret_cast<T*>(smem_raw);\n",
+     "  T* smem = reinterpret_cast<T*>(smem_raw);\n  const long long t_start = now_ns();\n"
+     "  long long t_wait = 0, t_sum = 0, t_mark = 0;\n"),
+    ("  for (long long st = 0; st < stages; ++st) {\n",
+     "  const long long t_loop = now_ns();\n  for (long long st = 0; st < stages; ++st) {\n"
+     "    t_mark = now_ns();\n"),
+    ("    __syncthreads();\n    const int rows = rows_of(st);\n",
+     "    __syncthreads();\n    const int rows = rows_of(st);\n    t_wait += now_ns() - t_mark;\n"
+     "    t_mark = now_ns();\n"),
+    ("    __syncthreads();\n  }\n\n  // the row groups' sums",
+     "    __syncthreads();\n    t_sum += now_ns() - t_mark;\n  }\n  const long long t_tail = now_ns();\n\n"
+     "  // the row groups' sums"),
+    ("    if (i <= j && j < k) out[i * k + j] = s;\n  }\n}\n",
+     "    if (i <= j && j < k) out[i * k + j] = s;\n  }\n" + clock_record("now_ns()", "now_ns()")
+     + "}\n"),
+    ("const char* tabmat_cuda_error_string", CLOCK_READER + "const char* tabmat_cuda_error_string"),
+)
+NARROW_CUTS = {
+    "copies only": ("    sums.sum(xs, xs + xe, rows_of(st), k);\n", "    (void)xs;\n"),
+    # the refills after the first NS - 1 stages dropped (their mbarriers
+    # still arrive): sums on stale rows
+    "FFMAs only": ("    if (st + NS - 1 < stages) issue(st + NS - 1);\n",
+                   "    if (st + NS - 1 < stages && tid == 0) arrive_expect(bar((st + NS - 1) % NS), 0);\n"),
+    # no ticket and no last block's sum of the splits
+    "no second pass": ("  if (tid == 0) s_ticket = (int)take_ticket(ticket);\n",
+                       "  if (tid == 0) s_ticket = -S;\n"),
+}
+NARROW_CLOCK = (
+    ("template <typename T, class Sums>\n__device__ __forceinline__ void narrow_block(",
+     CLOCK_HELPERS + "template <typename T, class Sums>\n__device__ __forceinline__ void narrow_block("),
+    ("  T* smem = reinterpret_cast<T*>(smem_raw);\n",
+     "  T* smem = reinterpret_cast<T*>(smem_raw);\n  const long long t_start = now_ns();\n"
+     "  long long t_wait = 0, t_sum = 0, t_mark = 0;\n"),
+    ("  for (int st = 0; st < stages; ++st) {\n",
+     "  const long long t_loop = now_ns();\n  for (int st = 0; st < stages; ++st) {\n"
+     "    t_mark = now_ns();\n"),
+    ("    mbar_wait(bar(st % NS), (unsigned)((st / NS) & 1));\n",
+     "    mbar_wait(bar(st % NS), (unsigned)((st / NS) & 1));\n    t_wait += now_ns() - t_mark;\n"
+     "    t_mark = now_ns();\n"),
+    ("    sums.sum(xs, xs + xe, rows_of(st), k);\n    __syncthreads();\n  }\n",
+     "    sums.sum(xs, xs + xe, rows_of(st), k);\n    __syncthreads();\n"
+     "    t_sum += now_ns() - t_mark;\n  }\n  const long long t_tail = now_ns();\n"),
+    ("  sums.finish(smem, partial + (long long)blockIdx.x * E, k);\n",
+     "  sums.finish(smem, partial + (long long)blockIdx.x * E, k);\n"
+     "  const long long t_finish = now_ns();\n"),
+    # every block's phases once it knows whether it sums splits; a folding
+    # block's end again after its share
+    ("  if (share < 0) return;\n",
+     "  const long long t_ticket = now_ns();\n" + clock_record("t_finish", "t_ticket")
+     + "  if (share < 0) return;\n"),
+    ("  if (tid == 0 && (folds == 1 || (int)take_ticket(ticket) == S + folds - 1)) *ticket = 0;\n",
+     "  if (tid == 0 && (folds == 1 || (int)take_ticket(ticket) == S + folds - 1)) *ticket = 0;\n"
+     f"  if (tid == 0) phase_clock[{CLOCK_WORDS} * blockIdx.x + 7] = now_ns();\n"),
+    ("const char* tabmat_cuda_error_string", CLOCK_READER + "const char* tabmat_cuda_error_string"),
+)
+NARROW_DESIGNS = {"parent": (PARENT_NARROW_CUTS, PARENT_NARROW_CLOCK),
+                  "kernel": (NARROW_CUTS, NARROW_CLOCK)}
+
+
+def _replaced(text: str, edits, what: str) -> str:
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise RuntimeError(f"{what}: {old[:60]!r} is not in the source once")
+        text = text.replace(old, new)
+    return text
+
+
+def narrow_design(text: str) -> str:
+    """The key of ``NARROW_DESIGNS`` whose anchors all occur once in ``text``."""
+    for key, (cuts, clock) in NARROW_DESIGNS.items():
+        anchors = [old for old, _ in cuts.values()] + [old for old, _ in clock]
+        if all(text.count(old) == 1 for old in anchors):
+            return key
+    raise RuntimeError("the narrow source matches no design of NARROW_DESIGNS")
+
+
+def narrow_kernel(text: str, name: str, label: str, design: str = None):
+    """``(run, lib)``: ``run(X, d)`` is the sandwich through ``text``, a
+    ``sandwich_narrow.cu`` built here with this tree's flags into
+    ``build/time_sandwich/``, with its design's row plan: the parent's
+    (``sandwich_kernel._split_rows`` over one wave, a second launch) or this
+    tree's (``sandwich_kernel.first_pass_args``, a ticket counter); a cut
+    or clocked copy names its design."""
+    design = design or narrow_design(text)
+    lib = _library_of(text, name, label)
+    lib.tabmat_sandwich_narrow_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    argtypes = sk._SANDWICH_ARGTYPES if design == "parent" else sk._NARROW_ARGTYPES
+    lib.tabmat_sandwich_narrow_f64.argtypes = argtypes
+    lib.tabmat_sandwich_narrow_f32.argtypes = argtypes
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = {}
+    for is_f64 in (0, 1):
+        count = ctypes.c_int(0)
+        if lib.tabmat_sandwich_narrow_blocks_per_sm(is_f64, ctypes.byref(count)) != 0:
+            raise RuntimeError(f"the occupancy query of {label} failed")
+        blocks[is_f64] = max(1, count.value)
+    tickets = {}  # stream -> this library's own ticket counter
+
+    def run(X, d):
+        n, k = X.shape
+        is_f64 = int(X.dtype == torch.float64)
+        fn = lib.tabmat_sandwich_narrow_f64 if is_f64 else lib.tabmat_sandwich_narrow_f32
+        out = torch.empty((k, k), dtype=X.dtype, device=X.device)
+        stream = torch.cuda.current_stream().cuda_stream
+        if design == "parent":
+            splits, rows = sk._split_rows(n, n_sm * blocks[is_f64], sk.ROWS)
+            partial = torch.empty((splits, k * k), dtype=X.dtype, device=X.device)
+            err = fn(X.data_ptr(), d.data_ptr(), out.data_ptr(), partial.data_ptr(), n, k,
+                     splits, rows, 0, stream)
+        else:
+            splits, size, rows = sk.first_pass_args("sandwich_narrow", n, k, n_sm,
+                                                    blocks[is_f64], X.device)
+            partial = torch.empty((splits, size), dtype=X.dtype, device=X.device)
+            if stream not in tickets:
+                tickets[stream] = torch.zeros(1, dtype=torch.int32, device=X.device)
+            err = fn(X.data_ptr(), d.data_ptr(), out.data_ptr(), partial.data_ptr(),
+                     tickets[stream].data_ptr(), n, k, splits, rows, 0, stream)
+        if err != 0:
+            raise RuntimeError(f"{label} failed: CUDA error {err}")
+        return out
+
+    return run, lib
+
+
+def diagnose_narrow(device, reps: int, card: str, parent_cu) -> None:
+    """``--diagnose-narrow``: the narrow kernel (``--parent-narrow-cu``'s
+    when given, else this tree's) beside its cuts and ``X.sum()`` at
+    ``NARROW_DIAGNOSE_SHAPES`` in both dtypes, in turns; then one launch with its
+    blocks' phases on the card's clock: for each phase the median and the
+    most over the blocks, in µs, and the launch's span."""
+    text = (parent_cu.read_text() if parent_cu is not None
+            else (_build.CSRC / "sandwich_narrow.cu").read_text())
+    design = narrow_design(text)
+    cuts_table, clock = NARROW_DESIGNS[design]
+    variants = {"kernel": text, "clocked": _replaced(text, clock, "clock")}
+    variants.update({label: _replaced(text, [edit], label) for label, edit in cuts_table.items()})
+    with ThreadPoolExecutor(max_workers=len(variants)) as pool:  # one nvcc each, at once
+        built = dict(zip(variants, pool.map(
+            lambda item: narrow_kernel(item[1], "narrow", f"{design} sandwich_narrow.cu, {item[0]}",
+                                       design), variants.items())))
+    kernel = built.pop("kernel")[0]
+    clocked, clock_lib = built.pop("clocked")
+    cuts = {label: run for label, (run, _) in built.items()}
+    clock_lib.read_phase_clock.argtypes = [ctypes.c_void_p, ctypes.c_longlong]
+    gen = torch.Generator(device=device).manual_seed(9)
+    for dtype in (torch.float64, torch.float32):
+        for n, k in NARROW_DIAGNOSE_SHAPES:
+            X = torch.randn(n, k, device=device, dtype=dtype, generator=gen)
+            d = torch.randn(n, device=device, dtype=dtype, generator=gen)
+            calls = {"kernel": lambda: kernel(X, d), "X.sum()": lambda: X.sum()}
+            calls.update({label: (lambda fn=fn: fn(X, d)) for label, fn in cuts.items()})
+            turns = {which: [] for which in calls}
+            for which in list(calls) + list(calls)[::-1]:
+                turns[which].append(chip_smoke._time_ms(calls[which], reps=reps))
+            bound_ms, bound_by = chip_smoke.sandwich_bound(n, k, X.element_size())
+            for _ in range(3):  # the last launch's clocks are kept
+                clocked(X, d)
+            torch.cuda.synchronize()
+            clock_buf = torch.zeros(CLOCK_WORDS * 8192, dtype=torch.int64)
+            if clock_lib.read_phase_clock(clock_buf.data_ptr(), clock_buf.numel()) != 0:
+                raise RuntimeError("reading the phase clocks failed")
+            c = clock_buf.view(-1, CLOCK_WORDS)
+            c = c[c[:, 7] > 0].double()
+            spans = {"set-up": c[:, 1] - c[:, 0], "copy issue and waits": c[:, 2],
+                     "sums": c[:, 3], "tail": c[:, 7] - c[:, 4],
+                     "entries written": c[:, 5] - c[:, 4], "ticket": c[:, 6] - c[:, 5],
+                     "sum of the splits": c[:, 7] - c[:, 6]}
+            phases = {p: {"median_us": float(v.median()) / 1e3, "most_us": float(v.max()) / 1e3}
+                      for p, v in spans.items()}
+            print(json.dumps({
+                "diagnose": f"sandwich_narrow<{'double' if dtype == torch.float64 else 'float'}>",
+                "design": design, "n": n, "k": k,
+                "ms": {w: sum(v) / len(v) for w, v in turns.items()}, "turns_ms": turns,
+                "bound_ms": bound_ms, "bound_by": bound_by, "blocks": int(c.shape[0]),
+                "phases": phases, "span_us": float(c[:, 7].max() - c[:, 0].min()) / 1e3,
+                "first_block_start_to_last_loop_us": float(c[:, 1].max() - c[:, 0].min()) / 1e3,
+                "card": card}), flush=True)
+            del X, d
+
+
 def _sustained(fn, seconds: float = 2.0) -> dict:
     """ms per call of ``fn`` run back to back for ``seconds``, with the SM
     clock (MHz) and power draw (W) that ``nvidia-smi`` samples meanwhile."""
@@ -544,12 +786,14 @@ def main() -> int:
     parser.add_argument("--reps", type=int, default=20)
     parser.add_argument("--parent-cu", type=Path, default=None)
     parser.add_argument("--parent-mma-cu", type=Path, default=None)
+    parser.add_argument("--parent-narrow-cu", type=Path, default=None)
     parser.add_argument("--sass", action="store_true")
     which = parser.add_mutually_exclusive_group()
     which.add_argument("--diagnose", action="store_true")
     which.add_argument("--diagnose-wide", action="store_true")
     which.add_argument("--diagnose-mma", action="store_true")
     which.add_argument("--blocks", action="store_true")
+    which.add_argument("--diagnose-narrow", action="store_true")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("time_sandwich: no CUDA card", file=sys.stderr)
@@ -557,18 +801,25 @@ def main() -> int:
     device = torch.device("cuda", 0)
     card = chip_smoke.card_line()
     print(card, flush=True)
-    _build.build_all(SOURCES)
-    for name in SOURCES:
+    sources = () if args.diagnose_narrow else SOURCES  # it builds its own copies
+    _build.build_all(sources)
+    for name in sources:
         info = _build.build_info[name]
         print(f"{name}.cu built in {info['seconds']} s (None: reused)")
         for line in ptxas_lines(info["log"]):
             print(f"  {line}")
-    for name, is_f64 in (("sandwich_tri", 0), ("sandwich_wide", 0), ("sandwich_mma_tri", 1),
-                         ("sandwich_mma", 1)):
+    for name, is_f64 in (("sandwich_narrow", 1), ("sandwich_narrow", 0), ("sandwich_tri", 0),
+                         ("sandwich_wide", 0), ("sandwich_mma_tri", 1), ("sandwich_mma", 1)):
+        if name not in sources:
+            continue
         blocks = ctypes.c_int(0)
         err = getattr(sk._library(name), f"tabmat_{name}_blocks_per_sm")(is_f64,
                                                                          ctypes.byref(blocks))
-        print(f"{name}.cu: {blocks.value} resident first-pass blocks per SM (error {err})")
+        print(f"{name}.cu: {blocks.value} resident first-pass blocks per SM "
+              f"({'f64' if is_f64 else 'f32'}; error {err})")
+    if args.diagnose_narrow:
+        diagnose_narrow(device, args.reps, card, args.parent_narrow_cu)
+        return 0
     if args.sass:
         loops = {**row_loops(_build.build_info["sandwich_tri"]["path"]),
                  **row_loops(_build.build_info["sandwich_wide"]["path"])}
@@ -593,6 +844,9 @@ def main() -> int:
     parent = None if args.parent_cu is None else parent_kernel(args.parent_cu)
     parent_mma = (None if args.parent_mma_cu is None else
                   parent_kernel(args.parent_mma_cu, "sandwich_mma"))
+    parent_narrow = (None if args.parent_narrow_cu is None else
+                     narrow_kernel(args.parent_narrow_cu.read_text(), "parent_narrow",
+                                   f"parent {args.parent_narrow_cu}")[0])
     gen = torch.Generator(device=device).manual_seed(8)
     ok = True
     for name, n, k in CASES:
@@ -602,6 +856,7 @@ def main() -> int:
         d[::5] = 0.0
         yardstick = sk.sandwich_tiled if name == "sandwich_wide<float>" else (
             parent_mma if name == "sandwich_mma<double>" else
+            parent_narrow if (name, n, k) in PARENT_NARROW_CASES else
             parent if (name, n, k) in PARENT_CASES else None)
         reps = 2 if (name, n, k) in SLOW_CASES else args.reps
         ok &= held(name, sk.KERNEL_WRAPPERS[name], X, d, reps, card, yardstick)
