@@ -77,6 +77,18 @@ Phases, each printed as it runs:
    against scipy on the host;
 7. the sparse main path at 1,000,000 x (5 dense + 100 sparse at 1% + 1000 +
    1000 levels), built without ``device=``: as phase 5;
+7b. the dataframe and formula path, built without ``device=``: a frame of
+   freMTPL2freq's shape (678,013 rows made with numpy; categoricals with
+   declared level orders that are not sorted), the design of
+   ``FREQ_FORMULA`` (42 columns: 7 dense, three kept categoricals) equal to
+   its numpy encoding and with the JAX package's column names, its matvec,
+   transpose_matvec and sandwich against scipy CSR, a Poisson
+   ``GeneralizedLinearRegressor`` with ``formula=`` and the exposure as
+   sample weights in both inner precisions against the same algorithm in
+   numpy, ``predict`` on 10,000 new rows against numpy; then
+   ``from_pandas`` on phase 5's frame, its design's sandwich and matvec
+   against phase 5's hand-built one; the host seconds of ``from_formula``
+   and ``from_pandas``;
 8. times from CUDA events after warm-up: each kernel, its plain version and
    the one PyTorch call that computes the same function (``torch.einsum``
    for the sandwiches, cuSPARSE through ``torch.sparse_csr_tensor`` for the
@@ -84,10 +96,10 @@ Phases, each printed as it runs:
    the mixed step's three shapes), the sandwich kernels at 1M x 50, 1M x 5, 4M x 10,
    400k x 160, 400k x 200, 1M x 177, 1M x 129, 200k x 1000 (f32 and f64)
    and ``sparse_wide``'s panels, and one
-   ``irls_step`` on each path in each inner precision, with the kernel
-   launches per step.
+   ``irls_step`` on each path (7b's formula design among them) in each
+   inner precision, with the kernel launches per step.
 
-The launch counts are set to 0 just before each main-path phase (4 to 7)
+The launch counts are set to 0 just before each main-path phase (4 to 7b)
 and read just after; each path must launch its kernels (the narrow and
 wide paths and the mixed and sparse paths' 5-column dense cell the width
 dispatch's kernels, the sparse main path both sparse products), and no
@@ -165,6 +177,29 @@ FIT_STEPS = 4
 # 5e-16, so its check against numpy runs 6 steps
 SPARSE_FIT_STEPS = 6
 N_CG = 16
+# the dataframe and formula path: freMTPL2freq, the French motor claims
+# table of R's CASdatasets (678,013 policies; glum's tutorial data), made
+# with numpy in its shape; each categorical's levels in a declared order
+# that is not sorted, and 10,000 new rows for predict
+FREQ_N, FREQ_NEW_N = 678_013, 10_000
+FREQ_FORMULA = ("ClaimNb ~ VehPower + VehAge + DrivAge + BonusMalus + C(Area) + C(VehBrand)"
+                " + C(VehGas) + C(Region) + np.log(Density)")
+FREQ_LEVELS = {
+    "Area": ["C", "A", "E", "B", "F", "D"],
+    "VehBrand": ["B12", "B1", "B2", "B3", "B4", "B5", "B6", "B10", "B11", "B13", "B14"],
+    "VehGas": ["Regular", "Diesel"],
+    "Region": ["R82", "R11", "R21", "R22", "R23", "R24", "R25", "R26", "R31", "R41", "R42",
+               "R43", "R52", "R53", "R54", "R72", "R73", "R74", "R83", "R91", "R93"],
+}
+# the formula design's columns are not scaled (BonusMalus to 230 beside
+# one-hot columns): its Hessian's condition number is above 1e6, and 16
+# CG iterations leave each inner solve far from converged, so that beta
+# moves by more than BETA_TOL when X moves by 1e-15.  With 100 iterations
+# each solve converges, and beta moves by less than a hundredth of
+# BETA_TOL, in f64 when X moves by 1e-15 and in f32 when it moves by 1e-7
+# (tests/test_torch_smoke.py::test_freq_fit_is_insensitive_to_rounding,
+# numpy at 20,000 rows), so the fit is held against numpy with these
+FREQ_FIT_STEPS, FREQ_N_CG = 6, 100
 # f64: the TPU kernels' own bar was relerr 5.2e-15 at this shape; 1e-13
 # leaves room for a different summation order.  f32: full-f32 FFMA measured
 # at most 2.0e-6 on the card; 2e-5 is ten times that, and a product of
@@ -228,6 +263,12 @@ SEGSUM_KERNELS = ("segsum<double>", "segsum<float>", "segsum_slots<double>",
                   "segsum_slots<float>")
 # the mixed path's 5-column dense cell takes the narrow kernel
 MIXED_KERNELS = NARROW_KERNELS + ("gather<double>", "gather<float>") + SEGSUM_KERNELS
+# the formula design's 7 dense columns take the narrow kernel, its three
+# categoricals the gather and the segment sum's tiles route (its cat x cat
+# cells have 50 to 200 segments); from_pandas's design, phase 5's, adds the
+# slots route of its 10^6-cell cat x cat cell (f64 only: it takes no f32 step)
+FRAME_KERNELS = NARROW_KERNELS + ("gather<double>", "segsum<double>", "segsum<float>",
+                                  "segsum_slots<double>")
 
 # the least time for a function: its bytes over the memory rate, or its
 # operations over the peak rate for the type, whichever is larger (H100 SXM
@@ -687,7 +728,7 @@ def phase_sparse_wide(X, device=None, seed: int = 4, slab: int = SLAB) -> dict:
     return {"matrix": m, "d": d}
 
 
-def _numpy_irls(X, y, family, steps, n_cg, inner):
+def _numpy_irls(X, y, family, steps, n_cg, inner, sample_weight=None):
     """The port's IRLS step (explicit Hessian, guarded CG) in numpy, for a
     dense X or a scipy sparse one."""
     from scipy import sparse as sps
@@ -695,15 +736,16 @@ def _numpy_irls(X, y, family, steps, n_cg, inner):
     dt = np.float32 if inner == "float32" else np.float64
     Xi = X.astype(dt)
     tiny = np.finfo(dt).tiny
+    sw = np.ones(X.shape[0]) if sample_weight is None else sample_weight
     beta = np.zeros(X.shape[1])
     for _ in range(steps):
         eta = X @ beta
         if family == "gaussian":
-            mu, w = eta, np.ones_like(eta)
+            mu, w = eta, sw
         else:
             mu = np.exp(eta)
-            w = mu
-        grad = X.T @ (y - mu)
+            w = mu * sw
+        grad = X.T @ (sw * (y - mu))
         if sps.issparse(Xi):
             H = (Xi.T @ sps.csr_matrix(Xi.multiply(w.astype(dt)[:, None]))).toarray()
         else:
@@ -900,7 +942,158 @@ def phase_mixed_path(n: int, kd: int, levels: int, device=None, fit_steps: int =
         _check(f"fit_glm poisson inner={inner} beta vs numpy/scipy", _relerr(got, ref),
                BETA_TOL[inner])
         betas[inner] = got
-    return {"design": design, "y": t(y), "betas": betas, "plan_seconds": plan_seconds}
+    return {"design": design, "y": t(y), "betas": betas, "plan_seconds": plan_seconds,
+            "Xd": Xd, "codes": codes, "levels": levels}
+
+
+def freq_frame(n: int, rng):
+    """A frame of freMTPL2freq's shape (``FREQ_LEVELS``), made with numpy:
+    the exposure, the numeric columns in their ranges, the categoricals
+    with their declared level orders, and Poisson claim counts."""
+    import pandas as pd
+
+    exposure = np.where(rng.random(n) < 0.3, 1.0, rng.uniform(0.0027, 1.0, n))
+    frame = pd.DataFrame({
+        "Exposure": exposure,
+        "VehPower": rng.integers(4, 16, n),
+        "VehAge": np.minimum(rng.geometric(0.12, n) - 1, 100),
+        "DrivAge": np.clip(np.rint(rng.normal(45.0, 14.0, n)), 18, 100).astype(np.int64),
+        "BonusMalus": np.minimum(49 + rng.geometric(0.08, n), 230),
+        "Density": np.clip(np.rint(np.exp(rng.normal(6.0, 2.0, n))), 1, 27_000).astype(np.int64),
+    })
+    eta = (-3.0 + 0.02 * (frame["VehPower"] - 6) - 0.01 * frame["VehAge"]
+           - 0.004 * (frame["DrivAge"] - 45) + 0.015 * (frame["BonusMalus"] - 50)
+           + 0.05 * np.log(frame["Density"])).to_numpy()
+    for name, levels in FREQ_LEVELS.items():
+        p = rng.random(len(levels)) + 0.2
+        codes = rng.choice(len(levels), n, p=p / p.sum())
+        frame[name] = pd.Categorical.from_codes(codes, categories=levels)
+        eta = eta + (rng.standard_normal(len(levels)) * 0.2)[codes]
+    frame["ClaimNb"] = rng.poisson(exposure * np.exp(eta))
+    return frame
+
+
+def freq_names() -> list:
+    """The design's column names by the JAX package's naming rule: the
+    intercept, then the terms in formula order (``C(x)[level]`` for each
+    level but the first declared one), ``np.log(Density)`` last."""
+    return (["Intercept", "VehPower", "VehAge", "DrivAge", "BonusMalus"]
+            + [f"C({name})[{level}]" for name, levels in FREQ_LEVELS.items()
+               for level in levels[1:]]
+            + ["np.log(Density)"])
+
+
+def freq_numpy_design(frame) -> np.ndarray:
+    """``freq_names()``'s columns made with numpy from the frame's columns."""
+    cols = [np.ones(len(frame))]
+    cols += [frame[name].to_numpy(np.float64)
+             for name in ("VehPower", "VehAge", "DrivAge", "BonusMalus")]
+    for name, levels in FREQ_LEVELS.items():
+        codes = frame[name].cat.codes.to_numpy()
+        cols += [(codes == j).astype(np.float64) for j in range(1, len(levels))]
+    cols.append(np.log(frame["Density"].to_numpy(np.float64)))
+    return np.column_stack(cols)
+
+
+def phase_frame_path(card: str, mixed: dict, n: int = FREQ_N, n_new: int = FREQ_NEW_N,
+                     device=None, fit_steps: int = FREQ_FIT_STEPS, seed: int = 6) -> dict:
+    """The dataframe and formula path through the public API: a Poisson
+    ``GeneralizedLinearRegressor`` with ``formula=`` on a freMTPL2-shaped
+    frame, and ``from_pandas`` on phase 5's frame, each checked against
+    numpy and scipy, or against phase 5's hand-built design.
+    ``device=None`` builds every matrix without ``device=``: the card."""
+    import pandas as pd
+    import tabmat_torch as tt
+    from scipy import sparse as sps
+    from tabmat_torch.parallel.design import DeviceDesign
+
+    kw = {} if device is None else {"device": device}
+    print(f"[7b] dataframe and formula path: {n} rows of a freMTPL2-shaped frame, "
+          f"device={'default' if device is None else device}", flush=True)
+    rng = np.random.default_rng(seed)
+    frame = freq_frame(n, rng)
+    y = frame["ClaimNb"].to_numpy(np.float64)
+    exposure = frame["Exposure"].to_numpy(np.float64, copy=True)
+    t0 = time.perf_counter()
+    Xf = tt.from_formula(FREQ_FORMULA, frame, include_intercept=True, ensure_full_rank=True, **kw)
+    formula_seconds = time.perf_counter() - t0
+    print(f"  from_formula {n} rows -> {Xf.shape[1]} columns "
+          f"({[type(m).__name__ for m in Xf.matrices]}): {formula_seconds:.3f} s on the host "
+          f"({card})")
+    if device is None and Xf.device.type != "cuda":
+        raise AssertionError(f"a formula design built without device= landed on {Xf.device}")
+    if Xf.column_names != freq_names():
+        raise AssertionError(f"column names {Xf.column_names} are not {freq_names()}")
+    X_np = freq_numpy_design(frame)
+    if not np.array_equal(Xf.toarray(), X_np):
+        raise AssertionError("the formula design is not the numpy encoding of the frame")
+
+    design = DeviceDesign.from_matrix(Xf)
+    dev = design.device
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+
+    X = sps.csr_matrix(X_np)
+    k = X.shape[1]
+    v, r = rng.standard_normal(k), rng.standard_normal(n)
+    _check("formula design matvec relerr vs scipy", _relerr(design.matvec(t(v)).cpu(), X @ v),
+           OP_TOL)
+    _check("formula design transpose_matvec relerr vs scipy",
+           _relerr(design.transpose_matvec(t(r)).cpu(), X.T @ r), OP_TOL)
+    H_ref = (X.T @ sps.csr_matrix(X.multiply(exposure[:, None]))).toarray()
+    _check("formula design sandwich f64 relerr vs scipy",
+           _relerr(design.sandwich(t(exposure)).cpu(), H_ref), F64_TOL)
+    w32 = exposure.astype(np.float32)
+    X32 = sps.csr_matrix(X.astype(np.float32), dtype=np.float64)
+    H32_ref = (X32.T @ sps.csr_matrix(X32.multiply(w32.astype(np.float64)[:, None]))).toarray()
+    _check("formula design sandwich f32 relerr vs scipy",
+           _relerr(design.astype_float(torch.float32).sandwich(t(w32)).cpu(), H32_ref), F32_TOL)
+    del X, X32, H_ref, H32_ref
+
+    new = freq_frame(n_new, np.random.default_rng(seed + 1))
+    X_new = freq_numpy_design(new)
+    betas = {}
+    for inner in ("float64", "float32"):
+        est = tt.GeneralizedLinearRegressor(family="poisson", formula=FREQ_FORMULA,
+                                            max_iter=fit_steps, tol=0.0, n_cg=FREQ_N_CG,
+                                            inner_precision=inner, **kw)
+        est.fit(frame, sample_weight=exposure)
+        got = np.r_[est.intercept_, est.coef_]
+        if est.n_iter_ != fit_steps or not np.all(np.isfinite(got)):
+            raise AssertionError(f"formula fit {inner}: n_iter {est.n_iter_}, beta {got}")
+        ref = _numpy_irls(X_np, y, "poisson", fit_steps, FREQ_N_CG, inner,
+                          sample_weight=exposure)
+        _check(f"formula fit poisson inner={inner} beta vs numpy", _relerr(got, ref),
+               BETA_TOL[inner])
+        _check(f"predict on {n_new} new rows relerr vs numpy",
+               _relerr(est.predict(new), np.exp(X_new @ got)), OP_TOL)
+        betas[inner] = got
+
+    # from_pandas on phase 5's frame: one dense block and two categoricals,
+    # the same design as phase 5's hand-built one
+    Xd, codes = mixed["Xd"], mixed["codes"]
+    levels = np.arange(mixed["levels"])
+    pdf = pd.DataFrame({f"x{j}": Xd[:, j] for j in range(Xd.shape[1])})
+    for j, c in enumerate(codes):
+        pdf[f"c{j}"] = pd.Categorical.from_codes(c, categories=levels)
+    t0 = time.perf_counter()
+    Xp = tt.from_pandas(pdf, **kw)
+    pandas_seconds = time.perf_counter() - t0
+    print(f"  from_pandas {len(pdf)} rows x ({Xd.shape[1]} + {len(levels)} + {len(levels)}): "
+          f"{pandas_seconds:.3f} s on the host ({card})")
+    kinds = sorted(type(m).__name__ for m in Xp.matrices)
+    if kinds != ["CategoricalMatrix", "CategoricalMatrix", "DenseMatrix"]:
+        raise AssertionError(f"from_pandas gave the blocks {kinds}")
+    pd_design, hand = DeviceDesign.from_matrix(Xp), mixed["design"]
+    w = t(rng.random(len(pdf)) + 0.05)
+    _check("from_pandas design f64 sandwich relerr vs phase 5's design",
+           _relerr(pd_design.sandwich(w).cpu(), hand.sandwich(w).cpu()), F64_TOL)
+    v = t(rng.standard_normal(hand.shape[1]))
+    _check("from_pandas design matvec relerr vs phase 5's design",
+           _relerr(pd_design.matvec(v).cpu(), hand.matvec(v).cpu()), F64_TOL)
+    return {"design": design, "y": t(y), "weights": t(exposure), "betas": betas,
+            "formula_seconds": formula_seconds, "pandas_seconds": pandas_seconds}
 
 
 # cycles the stream sleeps before a held timing (about 5 ms at 2 GHz)
@@ -1002,14 +1195,15 @@ SANDWICH_TIMES = {
     "sandwich_narrow<double>": ((NARROW_N, NARROW_K), (N, MIX_KD)),
     "sandwich_narrow<float>": ((NARROW_N, NARROW_K), (N, MIX_KD)),
     "sandwich_tri<float>": ((N, K), (WIDE_N, WIDE_K)),
-    "sandwich_mma_tri<double>": ((N, K),),
+    # 1M x 100 and 1M x 128: where PERF.md holds the v3 and v5 rows
+    "sandwich_mma_tri<double>": ((N, K), (N, 100), (N, 128)),
     "sandwich_mma<double>": ((WIDE_N, WIDE_K), (WIDE_N, F32_WIDE_K), (1_000_000, 129),
                              (200_000, 1000)),
 }
 
 
 def phase_times(device, n: int, k: int, card: str, mixed: dict, sparse: dict,
-                cases: list, wide: dict) -> dict:
+                cases: list, wide: dict, frames: dict) -> dict:
     """Kernel, plain and library times with their bounds, and IRLS step times."""
     import tabmat_torch as tt
     from torch.nn import functional as F
@@ -1162,12 +1356,14 @@ def phase_times(device, n: int, k: int, card: str, mixed: dict, sparse: dict,
         dense = DeviceDesign.from_matrix(tt.DenseMatrix(X_np))
         y_dense = torch.as_tensor(
             X_np @ rng.standard_normal(cols) + 0.1 * rng.standard_normal(rows), device=device)
-        steps.append((f"{label} gaussian", dense, y_dense, "gaussian"))
+        steps.append((f"{label} gaussian", dense, y_dense, "gaussian", None))
         del X_np
-    steps += [("mixed poisson", design, y, "poisson"),
-              ("sparse poisson", sparse["design"], sparse["y"], "poisson")]
-    for label, dd, yy, family in steps:
-        w = torch.ones(dd.shape[0], dtype=torch.float64, device=device)
+    steps += [("mixed poisson", design, y, "poisson", None),
+              ("sparse poisson", sparse["design"], sparse["y"], "poisson", None),
+              ("formula poisson", frames["design"], frames["y"], "poisson", frames["weights"])]
+    for label, dd, yy, family, w in steps:
+        if w is None:
+            w = torch.ones(dd.shape[0], dtype=torch.float64, device=device)
         b0 = torch.zeros(dd.shape[1], dtype=torch.float64, device=device)
         for inner in ("float32", "float64"):
             def step():
@@ -1242,12 +1438,14 @@ def main() -> int:
     sparse = run_main_path("sparse main path", phase_mixed_path, N, MIX_KD, MIX_LEVELS,
                            sparse=block, fit_steps=SPARSE_FIT_STEPS,
                            must_launch=SPARSE_KERNELS + NARROW_KERNELS[:2] + SEGSUM_KERNELS)
+    frames = run_main_path("dataframe and formula path", phase_frame_path, card, mixed,
+                           must_launch=FRAME_KERNELS, must_not=wider)
     # the tiled kernels are off every route: phase 3 holds them, no path runs them
     for tiled in ("sandwich<double>", "sandwich<float>"):
         if any(counts[tiled] for counts in main_launches):
             raise AssertionError(f"a main path launched {tiled}, which no route names")
 
-    times = phase_times(device, N, K, card, mixed, sparse, cases, wide)
+    times = phase_times(device, N, K, card, mixed, sparse, cases, wide, frames)
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         bound_ms, bound_by = times[name]["bound"]

@@ -11,8 +11,10 @@ use.
 
 The port carries ``DenseMatrix``, ``SparseMatrix``, ``CategoricalMatrix``,
 ``SplitMatrix`` of them, ``StandardizedMatrix``, ``hstack``/``as_tabmat``,
-and ``fit_glm``/``GeneralizedLinearRegressor`` on all of them.  It never
-imports JAX.
+the dataframe and formula constructors ``from_df``/``from_pandas``/
+``from_csc``/``from_formula``, and ``fit_glm``/``GeneralizedLinearRegressor``
+on all of them (the estimator also on a DataFrame and with ``formula=``).
+It never imports JAX.
 """
 
 from .models import (  # noqa: F401
@@ -25,6 +27,8 @@ from .models import (  # noqa: F401
     as_tabmat,
     hstack,
 )
+from .constructors import from_csc, from_df, from_pandas  # noqa: F401
+from .formula import from_formula  # noqa: F401
 from .ops.diag import DiagonalResult  # noqa: F401
 from .glm import GeneralizedLinearRegressor, fit_glm  # noqa: F401
 
@@ -38,6 +42,10 @@ __all__ = [
     "SplitMatrix",
     "StandardizedMatrix",
     "DiagonalResult",
+    "from_csc",
+    "from_formula",
+    "from_pandas",
+    "from_df",
     "as_tabmat",
     "hstack",
     "GeneralizedLinearRegressor",

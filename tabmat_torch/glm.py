@@ -401,21 +401,16 @@ def _is_scipy_sparse(X) -> bool:
     return sps.issparse(X)
 
 
-def _not_ported_input(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to tabmat_torch yet: the constructors and the "
-        "formula engine are ROADMAP A5"
-    )
-
-
 class GeneralizedLinearRegressor:
     """Minimal sklearn-style GLM estimator over tabmat_torch matrices.
 
     Accepts numpy arrays, tensors, a scipy sparse matrix, a DenseMatrix, a
-    SparseMatrix, a CategoricalMatrix, a SplitMatrix, or a
-    StandardizedMatrix (with ``fit_intercept=False``: as in the reference,
-    the intercept column cannot be stacked beside it).  DataFrames and
-    formulas are ROADMAP A5.
+    SparseMatrix, a CategoricalMatrix, a SplitMatrix, a StandardizedMatrix
+    (with ``fit_intercept=False``: as in the reference, the intercept column
+    cannot be stacked beside it), or a DataFrame (through ``from_df``).
+    With ``formula='y ~ ...'`` the design and the response come from the
+    frame passed as ``X`` (``from_formula``), and ``predict`` re-encodes a
+    new frame with the training levels.
 
     Parameters
     ----------
@@ -423,7 +418,8 @@ class GeneralizedLinearRegressor:
     l2: ridge penalty strength
     fit_intercept: prepend a constant column
     max_iter / tol / n_cg: IRLS and inner-CG controls
-    device: where numpy inputs go; None means the CUDA card
+    formula: a Wilkinson formula; ``fit`` then takes a frame
+    device: where numpy inputs and frames go; None means the CUDA card
     """
 
     def __init__(
@@ -454,21 +450,25 @@ class GeneralizedLinearRegressor:
         self.inner_precision = inner_precision
         self.formula = formula
         self.device = device
+        self._formula_spec = None
 
     @staticmethod
-    def _supported(X) -> bool:
+    def _is_frame(X) -> bool:
+        """Anything but an array, a tensor, a matrix or a scipy sparse
+        matrix is read as a frame."""
         from .models.base import MatrixBase
         from .models.standardized import StandardizedMatrix
 
-        return isinstance(X, (MatrixBase, StandardizedMatrix, np.ndarray, torch.Tensor)) or (
-            _is_scipy_sparse(X))
+        return not (isinstance(X, (MatrixBase, StandardizedMatrix, np.ndarray, torch.Tensor))
+                    or _is_scipy_sparse(X))
 
     def _design(self, X):
+        from .constructors import from_df
         from .models.split import hstack
         from .utils.validation import as_numpy_dtype
 
-        if not self._supported(X):
-            raise _not_ported_input(f"fitting on a {type(X).__name__}")
+        if self._is_frame(X):
+            X = from_df(X, device=self.device)
         if self.fit_intercept:
             ones = np.ones((X.shape[0], 1), dtype=as_numpy_dtype(X.dtype))
             X = hstack([ones, X], device=self.device)
@@ -483,11 +483,41 @@ class GeneralizedLinearRegressor:
         ps[0] = 0.0
         return ps
 
+    def _formula_design(self, X, y):
+        """``(design, y)`` of ``formula=`` on the frame ``X`` (the JAX
+        package's ``tabmat_tpu/glm.py:476-500``); keeps the model spec."""
+        from .formula import from_formula
+        from .formula.engine import materialize_response
+
+        if y is None:
+            y = materialize_response(self.formula, X)
+        design = from_formula(
+            self.formula,
+            X,
+            include_intercept=self.fit_intercept,
+            # estimators need an identifiable design: drop reference
+            # levels of categoricals spanned by the intercept
+            ensure_full_rank=True,
+            device=self.device,
+        )
+        self._formula_spec = design.model_spec
+        return design, y
+
     def fit(self, X, y=None, sample_weight=None):
-        """Fit by IRLS; stores ``coef_``, ``intercept_``, ``n_iter_``."""
+        """Fit by IRLS; stores ``coef_``, ``intercept_``, ``n_iter_``.
+
+        With ``formula='y ~ ...'`` set, pass the dataframe as ``X``: the
+        response is evaluated from the formula's left-hand side unless ``y``
+        is given, and ``feature_names_`` holds the design's column names.
+        """
         if self.formula is not None:
-            raise _not_ported_input("formula=")
-        design = self._design(X)
+            design, y = self._formula_design(X, y)
+            names = design.column_names
+            # the intercept column is recognised by name; it is left out of
+            # the penalty even where fit_intercept=False kept it in coef_
+            has_icpt = bool(names) and names[0] == "Intercept"
+        else:
+            design, has_icpt = self._design(X), self.fit_intercept
         beta, n_iter = fit_glm(
             design,
             y,
@@ -499,23 +529,37 @@ class GeneralizedLinearRegressor:
             l2=self.l2,
             l1=self.l1,
             inner_precision=self.inner_precision,
-            penalty_scale=self._penalty_scale(design.shape[1], self.fit_intercept),
+            penalty_scale=self._penalty_scale(design.shape[1], has_icpt),
             device=self.device,
         )
         beta = beta.cpu().numpy()
-        if self.fit_intercept:
-            self.intercept_ = float(beta[0])
-            self.coef_ = beta[1:]
-        else:
-            self.intercept_ = 0.0
-            self.coef_ = beta
+        split = self.fit_intercept and has_icpt
+        self.intercept_ = float(beta[0]) if split else 0.0
+        self.coef_ = beta[1:] if split else beta
+        if self.formula is not None:
+            self.feature_names_ = names[1:] if split else names
         self.n_iter_ = n_iter
         return self
 
     def linear_predictor(self, X):
-        """``X @ coef_ + intercept_`` as host numpy (same X types as fit)."""
-        if not self._supported(X):
-            raise _not_ported_input(f"predicting on a {type(X).__name__}")
+        """``X @ coef_ + intercept_`` as host numpy (same X types as fit).
+
+        A frame goes through the kept formula spec, which re-encodes it with
+        the training levels, or else through ``from_df``.
+        """
+        if self._is_frame(X):
+            if self._formula_spec is not None:
+                Xm = self._formula_spec.get_model_matrix(X)
+                names = Xm.column_names
+                beta_full = (
+                    np.concatenate([[self.intercept_], self.coef_])
+                    if names and names[0] == "Intercept"
+                    else self.coef_
+                )
+                return np.asarray(Xm.matvec(beta_full))
+            from .constructors import from_df
+
+            X = from_df(X, device=self.device)
         if isinstance(X, np.ndarray) or _is_scipy_sparse(X):
             eta = X @ self.coef_
         elif torch.is_tensor(X):

@@ -9,8 +9,7 @@ Port of ``tabmat_tpu/models/categorical.py``.  The math:
 ``drop_first`` and missing values ('fail' | 'zero' | 'convert') reduce to a
 code shift: ``eff = codes - drop_first``, and a negative code contributes
 nothing.  The codes live on the matrix's device; the segment plan (a sort of
-the codes) is built once on the host and kept.  pandas is imported only for
-pandas input: codes plus categories, and numpy arrays, need no pandas.
+the codes) is built once on the host and kept.
 """
 
 import copy as _copy
@@ -21,8 +20,14 @@ from typing import Optional
 import numpy as np
 import torch
 
+try:
+    import pandas as pd
+except ImportError:  # pragma: no cover
+    pd = None
+
 from .. import _native
 from .._config import resolve_device
+from .._frames import nw
 from ..ops import categorical_ops
 from ..ops.diag import DiagonalResult
 from ..ops.segments import SegmentPlan, build_plan
@@ -55,19 +60,30 @@ def _factorize_numpy(x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
 def _extract_codes_and_categories(cat_vec) -> tuple[np.ndarray, np.ndarray]:
     """(codes, categories) of a vector; missing values map to code -1.
 
-    A pandas Categorical keeps its declared category order; everything else
-    is factorized in sorted order (reference ``categorical.py:65-99``).
+    The reference's extraction (``tabmat_tpu/models/categorical.py:65-99``):
+    a pandas categorical, bare or wrapped in a narwhals series, keeps its
+    declared category order; another pandas series is factorized in sorted
+    order; another narwhals series is cast to strings first; everything else
+    is factorized in sorted order, by pandas where it is installed.
     """
-    if type(cat_vec).__module__.split(".")[0] == "pandas":
-        import pandas as pd
-
-        if isinstance(cat_vec, pd.Categorical):
-            return np.asarray(cat_vec.codes), np.asarray(cat_vec.categories)
-        if isinstance(cat_vec, pd.Series) and isinstance(cat_vec.dtype, pd.CategoricalDtype):
-            return cat_vec.cat.codes.to_numpy(), np.asarray(cat_vec.cat.categories)
-        codes, categories = pd.factorize(cat_vec, sort=True)
+    native = nw.to_native(cat_vec, pass_through=True)
+    if pd is not None and isinstance(native, (pd.Series, pd.Categorical)):
+        if isinstance(native, pd.Categorical):
+            return np.asarray(native.codes), np.asarray(native.categories)
+        if isinstance(native.dtype, pd.CategoricalDtype):
+            return native.cat.codes.to_numpy(), np.asarray(native.cat.categories)
+        codes, categories = pd.factorize(native, sort=True)
         return codes, np.asarray(categories)
-    return _factorize_numpy(np.asarray(cat_vec))
+
+    maybe_series = nw.from_native(cat_vec, series_only=True, pass_through=True)
+    if isinstance(maybe_series, nw.Series):
+        arr = maybe_series.cast(nw.String).to_numpy()
+    else:
+        arr = np.asarray(native)
+    if pd is not None:
+        codes, categories = pd.factorize(arr, sort=True)
+        return codes, np.asarray(categories)
+    return _factorize_numpy(arr)
 
 
 class CategoricalMatrix(MatrixBase):

@@ -288,17 +288,50 @@ def test_beta_conversion():
     np.testing.assert_array_equal(got.numpy(), np.arange(4.0))
 
 
-def test_not_ported_inputs_raise():
+def _frames(seed=13, n=400):
+    """A training frame and a new one: two numeric columns, a categorical
+    with a declared order, Poisson counts."""
     import pandas as pd
 
+    def frame(rng, n):
+        out = pd.DataFrame({
+            "x": rng.standard_normal(n) * 0.5,
+            "z": rng.standard_normal(n) * 0.5,
+            "c": pd.Categorical(rng.choice(list("pqrs"), n), categories=list("spqr")),
+        })
+        eta = 0.3 * out["x"] - 0.2 * out["z"] + out["c"].cat.codes * 0.2 - 0.3
+        out["y"] = rng.poisson(np.exp(eta)).astype(np.float64)
+        return out
+
+    rng = np.random.default_rng(seed)
+    return frame(rng, n), frame(rng, 50)
+
+
+def test_not_ported_inputs_raise():
+    """Inputs the port refuses, and the DataFrame and ``formula=`` inputs
+    the port now takes (ROADMAP A5), held to the JAX estimator with
+    test_estimator's tolerances."""
     with pytest.raises(ValueError, match="Unknown family"):
         tt.fit_glm(np.ones((4, 1)), np.ones(4), family="bogus", device="cpu")
     with pytest.raises(ValueError, match="Unknown family"):
         tt.GeneralizedLinearRegressor(family="bogus")
-    with pytest.raises(NotImplementedError, match="A5"):
-        tt.GeneralizedLinearRegressor(device="cpu").fit(pd.DataFrame({"x": [1.0, 2.0]}), [1.0, 2.0])
-    with pytest.raises(NotImplementedError, match="A5"):
-        tt.GeneralizedLinearRegressor(formula="y ~ x").fit(np.ones((2, 1)), [1.0, 2.0])
+    train, new = _frames()
+    kw = dict(family="poisson", n_cg=20, max_iter=8, l2=0.01)
+    X = train[["x", "z", "c"]]
+    got = tt.GeneralizedLinearRegressor(**kw, device="cpu").fit(X, train["y"])
+    want = tm.GeneralizedLinearRegressor(**kw).fit(X, train["y"])
+    np.testing.assert_allclose(got.coef_, want.coef_, rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(got.intercept_, want.intercept_, rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(got.predict(new[["x", "z", "c"]]),
+                               want.predict(new[["x", "z", "c"]]), rtol=1e-4, atol=1e-6)
+    got = tt.GeneralizedLinearRegressor(**kw, formula="y ~ x + C(c)", device="cpu").fit(train)
+    want = tm.GeneralizedLinearRegressor(**kw, formula="y ~ x + C(c)").fit(train)
+    assert got.feature_names_ == want.feature_names_ == ["x", "C(c)[p]", "C(c)[q]", "C(c)[r]"]
+    np.testing.assert_allclose(got.coef_, want.coef_, rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(got.intercept_, want.intercept_, rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(got.predict(new), want.predict(new), rtol=1e-4, atol=1e-6)
+    carried = from_tabmat_tpu(want, device="cpu")
+    np.testing.assert_allclose(carried.predict(new), want.predict(new), rtol=1e-12)
     with pytest.raises(TypeError, match="DeviceDesign"):
         DeviceDesign.from_matrix(object())
     # sparse matrices convert since ROADMAP A4

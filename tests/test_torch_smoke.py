@@ -34,7 +34,8 @@ def _chip_smoke():
 def test_import_leaves_jax_out():
     code = (
         "import sys, tabmat_torch, tabmat_torch.convert, tabmat_torch.parallel.design, "
-        "tabmat_torch._build, chip_smoke; "
+        "tabmat_torch._build, tabmat_torch.constructors, tabmat_torch.formula, "
+        "tabmat_torch.formula.engine, chip_smoke; "
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m); "
         "assert 'tabmat_tpu' not in sys.modules"
     )
@@ -185,6 +186,52 @@ def test_numpy_irls_converges_to_least_squares():
     y = X @ np.array([1.0, -2.0, 0.5]) + 0.01 * rng.standard_normal(400)
     beta = _chip_smoke()._numpy_irls(X, y, "gaussian", 2, 10, "float64")
     np.testing.assert_allclose(beta, np.linalg.lstsq(X, y, rcond=None)[0], atol=1e-10)
+
+
+def test_numpy_irls_weights_match_weighted_least_squares():
+    rng = np.random.default_rng(1)
+    X = rng.standard_normal((400, 3))
+    y = X @ np.array([1.0, -2.0, 0.5]) + 0.1 * rng.standard_normal(400)
+    w = rng.random(400) + 0.1
+    beta = _chip_smoke()._numpy_irls(X, y, "gaussian", 2, 10, "float64", sample_weight=w)
+    sw = np.sqrt(w)
+    np.testing.assert_allclose(beta, np.linalg.lstsq(X * sw[:, None], y * sw, rcond=None)[0],
+                               atol=1e-10)
+
+
+def test_frame_path_phase_on_cpu():
+    """Phase 7b at a few thousand rows: the formula fit in both precisions,
+    predict, and from_pandas on phase 5's frame, with no kernel launched."""
+    smoke = _chip_smoke()
+    cpu = torch.device("cpu")
+    mixed = smoke.phase_mixed_path(3000, 5, 50, device=cpu)
+    smoke.reset_launch_counts()
+    report = smoke.phase_frame_path("cpu", mixed, n=4000, n_new=300, device=cpu)
+    assert not any(smoke.launch_counts().values())  # the CPU takes the plain versions
+    assert report["design"].shape == (4000, len(smoke.freq_names())) == (4000, 42)
+    assert [b.kind for b in report["design"].blocks] == ["dense", "cat"]
+    for beta in report["betas"].values():
+        assert beta.shape == (42,) and np.all(np.isfinite(beta))
+
+
+def test_freq_fit_is_insensitive_to_rounding():
+    """With FREQ_N_CG iterations each inner solve converges, so the formula
+    fit's beta moves far less than its limits when X moves by a rounding
+    error; with phase 5's N_CG it would not (the comment at FREQ_N_CG)."""
+    smoke = _chip_smoke()
+    frame = smoke.freq_frame(20_000, np.random.default_rng(6))
+    X = smoke.freq_numpy_design(frame)
+    y, w = frame["ClaimNb"].to_numpy(np.float64), frame["Exposure"].to_numpy(np.float64)
+    assert np.linalg.cond((X * w[:, None]).T @ X) > 1e6
+
+    def moves(inner, n_cg, eps):
+        fit = [smoke._numpy_irls(A, y, "poisson", smoke.FREQ_FIT_STEPS, n_cg, inner,
+                                 sample_weight=w) for A in (X, X * (1 + eps))]
+        return smoke._relerr(fit[1], fit[0])
+
+    assert moves("float64", smoke.FREQ_N_CG, 1e-15) < smoke.BETA_TOL["float64"] / 100
+    assert moves("float32", smoke.FREQ_N_CG, 1e-7) < smoke.BETA_TOL["float32"] / 100
+    assert moves("float64", smoke.N_CG, 1e-15) > smoke.BETA_TOL["float64"]
 
 
 def test_main_refuses_without_cuda(monkeypatch, capsys):

@@ -4,7 +4,7 @@
 Run from the repository root on a machine with a card:
 
     python3 tools/profile_irls_step.py
-        [--design dense|dense_narrow|dense_wide|mixed|sparse] [--n N] [--k K]
+        [--design dense|dense_narrow|dense_wide|mixed|sparse|formula] [--n N] [--k K]
         [--levels 1000] [--repeats 3]
 
 ``--design dense`` (the default) steps a gaussian GLM on a ``DeviceDesign``
@@ -17,7 +17,10 @@ GLM on the mixed design of ``bench.py:360-371``: a ``SplitMatrix`` of an
 (n, 5) ``DenseMatrix`` and two categoricals of ``--levels`` levels each
 (1,000,000 x 2005 by default).  ``--design sparse`` adds ``bench.py:282``'s
 sparse block, 100 columns at 1% (``scipy.sparse.random``, seed 0), after
-the dense one (1,000,000 x 2105 by default).  All use ``n_cg=16``.  For each repeat and
+the dense one (1,000,000 x 2105 by default).  ``--design formula`` steps a
+poisson GLM, the exposure as sample weights, on ``chip_smoke.py``'s
+formula design: ``from_formula`` of its freMTPL2-shaped frame (678,013 x
+42 by default: 7 dense columns and three categoricals).  All use ``n_cg=16``.  For each repeat and
 each ``inner_precision`` it prints one JSON line:
 
 - ``host_ms``: host-clock step times with a synchronise after each step
@@ -60,7 +63,7 @@ from tabmat_torch.parallel.design import DeviceDesign  # noqa: E402
 N_CG = 16
 # design -> its default (n, k); the mixed and sparse designs take --levels
 SIZES = {"dense": (1_000_000, 50), "dense_narrow": (4_000_000, 10), "dense_wide": (400_000, 160),
-         "mixed": (1_000_000, 5), "sparse": (1_000_000, 5)}
+         "mixed": (1_000_000, 5), "sparse": (1_000_000, 5), "formula": (678_013, 42)}
 
 
 def profile(step, steps: int = 10):
@@ -127,13 +130,23 @@ def tabmat_launches(step) -> dict:
 
 
 def design_and_target(kind: str, n: int, k: int, levels: int, device):
-    """``(design, y, family)`` for the dense, mixed or sparse design, from a seed."""
+    """``(design, y, family, sample weights)`` for the dense, mixed, sparse or
+    formula design, from a seed; the weights are None for all but the formula
+    design's."""
     rng = np.random.default_rng(7)
     if kind.startswith("dense"):
         X = rng.standard_normal((n, k))
         design = DeviceDesign.from_matrix(tt.DenseMatrix(X, device=device))
         y = X @ rng.standard_normal(k) + 0.1 * rng.standard_normal(n)
-        return design, torch.as_tensor(y, device=device), "gaussian"
+        return design, torch.as_tensor(y, device=device), "gaussian", None
+    if kind == "formula":
+        from chip_smoke import FREQ_FORMULA, freq_frame
+
+        frame = freq_frame(n, rng)
+        design = DeviceDesign.from_matrix(tt.from_formula(
+            FREQ_FORMULA, frame, include_intercept=True, ensure_full_rank=True, device=device))
+        return (design, torch.tensor(frame["ClaimNb"].to_numpy(np.float64), device=device),
+                "poisson", torch.tensor(frame["Exposure"].to_numpy(np.float64), device=device))
     Xd = rng.standard_normal((n, 5))
     codes = [rng.integers(0, levels, n) for _ in range(2)]
     sparse = []
@@ -152,7 +165,8 @@ def design_and_target(kind: str, n: int, k: int, levels: int, device):
         eta += Xs @ (rng.standard_normal(Xs.shape[1]) * 0.1)
     for c in codes:
         eta += (rng.standard_normal(levels) * 0.1)[c]
-    return design, torch.as_tensor(rng.poisson(np.exp(eta)).astype(np.float64), device=device), "poisson"
+    y = rng.poisson(np.exp(eta)).astype(np.float64)
+    return design, torch.as_tensor(y, device=device), "poisson", None
 
 
 def main() -> int:
@@ -176,10 +190,11 @@ def main() -> int:
 
     device = torch.device("cuda", 0)
     n_default, k_default = SIZES[args.design]
-    design, y, family = design_and_target(args.design, args.n or n_default, args.k or k_default,
-                                          args.levels, device)
+    design, y, family, w = design_and_target(args.design, args.n or n_default,
+                                             args.k or k_default, args.levels, device)
     n, k = design.shape
-    w = torch.ones(n, dtype=torch.float64, device=device)
+    if w is None:
+        w = torch.ones(n, dtype=torch.float64, device=device)
     b0 = torch.zeros(k, dtype=torch.float64, device=device)
 
     prof = None
