@@ -30,7 +30,11 @@ Phases, each printed as it runs:
    product; the width dispatch at 32/33 and 128/129 (f64) and 32/33 and
    176/177 (f32); the range prepass
    ``column_absmax``; the gather at 1,000,000 rows (codes with sentinels, a
-   stack of two categoricals, and sorted bounds), exactly equal; the segment
+   stack of two categoricals, and sorted bounds) and at its edges (1, 7, 33
+   and 100,003 rows at 1 to 3 planes, 5 and 9 planes, codes views at
+   offsets of 1 to 3, all-sentinel codes, an empty table, a 100,000-entry
+   table, -0.0 with inf and NaN behind the sentinels), bit for bit and
+   across two launches; the segment
    sum at 1,000,000 and 100,003 rows, W in {1, 7, 1000, the stacked plan of
    two 1000-level categoricals (2000), 10^6} segments and a plan whose rows
    all fall in one row tile, m in {1, 5, 8, 9, 50} columns, with sentinels
@@ -93,7 +97,9 @@ Phases, each printed as it runs:
    the one PyTorch call that computes the same function (``torch.einsum``
    for the sandwiches, cuSPARSE through ``torch.sparse_csr_tensor`` for the
    sparse product, ``bincount`` and ``index_add_`` for the segment sum at
-   the mixed step's three shapes), the sandwich kernels at 1M x 50, 1M x 5, 4M x 10,
+   the mixed step's three shapes, ``table[codes]``, ``embedding_bag`` and
+   ``src[idx]`` for the gather, also at the window take's sorted indices),
+   the sandwich kernels at 1M x 50, 1M x 5, 4M x 10,
    400k x 160, 400k x 200, 1M x 177, 1M x 129, 200k x 1000 (f32 and f64)
    and ``sparse_wide``'s panels, and one
    ``irls_step`` on each path (7b's formula design among them) in each
@@ -465,10 +471,77 @@ def segsum_plan(rng, n: int, W, device, levels: int = MIX_LEVELS):
     return build_plan(keys, W, device)
 
 
+# the gather's edge cases: rows that leave every n % 4 (a thread takes runs
+# of 4 rows in f32, 2 in f64), at 1 to 3 stacked planes; codes views at
+# these offsets (the planes then start off their runs' alignment, each by
+# its own amount)
+GATHER_EDGE_NS = (1, 7, 33, EDGE_N)
+# past 3 planes the kernel takes them a plane at a time
+GATHER_WIDE_CS = (4, 5, 6, 7, 8, 9)
+GATHER_OFFSETS = (1, 2, 3)
+ONE_CAT_LEVELS = 100_000  # the reference bench's one_cat table
+
+
+def gather_cases(rng, device, dtype, n: int, levels: int = MIX_LEVELS) -> list:
+    """``(label, table, codes, rows)`` of phase 3's gather: codes with
+    sentinels (-1, -2, past the end) on ``n`` rows, a stack of two
+    categoricals as the design stacks them, sorted bounds (the window take),
+    then the edges: every ``GATHER_EDGE_NS`` at C = 1, 2, 3, and
+    ``GATHER_WIDE_CS`` planes; codes views at
+    ``GATHER_OFFSETS``; all-sentinel codes; an empty table; a
+    ``ONE_CAT_LEVELS`` table; and a table holding inf and NaN where only
+    sentinels would reach them (a clamped or multiplied-by-0 sentinel would
+    read them) and -0.0 where codes do."""
+    def t(a, dt=dtype):
+        return torch.as_tensor(a, dtype=dt, device=device)
+
+    def codes(rows, width, C=1):
+        return t(rng.integers(-2, width + 3, C * rows), torch.int32)
+
+    table = t(rng.standard_normal(levels))
+    first, second = rng.integers(-1, levels, n), rng.integers(-1, levels, n)
+    stacked = np.concatenate([np.where(first >= 0, first, 2 * levels),
+                              np.where(second >= 0, second + levels, 2 * levels)])
+    bounds = np.sort(rng.integers(0, n + 1, 10**6 + 1))
+    cases = [
+        ("codes with sentinels", table, codes(n, levels), n),
+        ("2-cat stack", t(rng.standard_normal(2 * levels)), t(stacked, torch.int32), n),
+        ("sorted bounds (window take)", t(np.cumsum(rng.standard_normal(n + 1))),
+         t(bounds, torch.int32), len(bounds)),
+    ]
+    for rows in GATHER_EDGE_NS:
+        for C in (1, 2, 3):
+            cases.append((f"{rows} rows C={C}", table, codes(rows, levels, C), rows))
+    for C in GATHER_WIDE_CS:
+        cases.append((f"{EDGE_N} rows C={C}", table, codes(EDGE_N, levels, C), EDGE_N))
+    for off in GATHER_OFFSETS:
+        for rows, C in ((EDGE_N - 3, 2), (EDGE_N, 3)):
+            view = codes(C * rows + off, levels)[off:]
+            cases.append((f"codes view at offset {off}, {rows} rows C={C}", table, view, rows))
+    sentinels = rng.choice(np.array([-1, -2, levels, levels + 7]), 2 * EDGE_N)
+    cases.append(("all-sentinel codes C=2", table, t(sentinels, torch.int32), EDGE_N))
+    cases.append(("empty table C=2", table[:0], codes(EDGE_N, 0, 2), EDGE_N))
+    cases.append((f"{ONE_CAT_LEVELS}-entry table", t(rng.standard_normal(ONE_CAT_LEVELS)),
+                  codes(n, ONE_CAT_LEVELS), n))
+    special = rng.standard_normal(levels)
+    special[[0, 1, levels - 1]] = (np.inf, -0.0, np.nan)
+    for C in (1, 2):
+        inner = rng.integers(1, levels - 1, C * EDGE_N)
+        inner[rng.random(C * EDGE_N) < 0.3] = 1  # -0.0
+        pick = rng.random(C * EDGE_N)
+        inner[pick < 0.2] = rng.choice(np.array([-1, -2, levels, levels + 5]),
+                                       int((pick < 0.2).sum()))
+        cases.append((f"-0.0, inf and NaN table C={C}", t(special), t(inner, torch.int32),
+                      EDGE_N))
+    return cases
+
+
 def phase_cat_kernels(device, n: int, seg_ws=SEG_WS, levels: int = MIX_LEVELS,
                       seg_ms=SEG_MS, edge_n: int = EDGE_N) -> dict:
     """The gather and the segment sum against their plain versions; returns
-    max|kernel - plain| by instantiation over all cases.  The segment sum
+    max|kernel - plain| by instantiation over all cases.  The gather is held
+    bit for bit (-0.0 included) to its plain version and to itself across
+    two launches on every case of :func:`gather_cases`.  The segment sum
     runs on n and ``edge_n`` rows at each of ``seg_ws`` (and a one-tile
     plan) and each of ``seg_ms`` columns; each case is attributed to the
     route it launched (on the CPU, to ``segsum<T>``)."""
@@ -480,33 +553,22 @@ def phase_cat_kernels(device, n: int, seg_ws=SEG_WS, levels: int = MIX_LEVELS,
     on_card = device.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     max_abs = {name: 0.0 for name in ("gather<double>", "gather<float>") + SEGSUM_KERNELS}
-    # sentinels: -1 (missing), -2 (drop_first of a missing), past the end
-    codes = rng.integers(-2, levels + 3, n).astype(np.int32)
-    # two categoricals stacked as the design stacks them: the second offset
-    # by the first's width, an invalid code turned into the pad code
-    first, second = rng.integers(-1, levels, n), rng.integers(-1, levels, n)
-    stacked = np.concatenate([np.where(first >= 0, first, 2 * levels),
-                              np.where(second >= 0, second + levels, 2 * levels)])
-    stacked = stacked.astype(np.int32)
-    bounds = np.sort(rng.integers(0, n + 1, 10**6 + 1)).astype(np.int32)
-    for dtype in (torch.float64, torch.float32):
+    for dtype, bits in ((torch.float64, torch.int64), (torch.float32, torch.int32)):
         name = f"gather<{'double' if dtype == torch.float64 else 'float'}>"
-        table = torch.as_tensor(rng.standard_normal(levels), dtype=dtype, device=device)
-        table2 = torch.as_tensor(rng.standard_normal(2 * levels), dtype=dtype, device=device)
-        src = torch.as_tensor(np.cumsum(rng.standard_normal(n + 1)), dtype=dtype, device=device)
-        cases = (
-            ("codes with sentinels", table, codes, n),
-            ("2-cat stack", table2, stacked, n),
-            ("sorted bounds (window take)", src, bounds, len(bounds)),
-        )
-        for label, tab, cod, rows in cases:
-            cod = torch.as_tensor(cod, device=device)
-            got = gk.gather(tab, cod, rows)
+        for label, tab, cod, rows in gather_cases(rng, device, dtype, n, levels):
+            before = gk.launches[name]
+            got, again = gk.gather(tab, cod, rows), gk.gather(tab, cod, rows)
+            if on_card and gk.launches[name] != before + 2:
+                raise AssertionError(f"{name} {label}: {gk.launches[name] - before} launches")
             want = gk.gather_plain(tab, cod, rows)
             sync()
+            if not torch.equal(got.view(bits), want.view(bits)):
+                raise AssertionError(f"{name} {label}: not bit for bit the plain version")
+            if not torch.equal(got.view(bits), again.view(bits)):
+                raise AssertionError(f"{name} {label}: two launches differ")
             err = float((got - want).abs().max())
             max_abs[name] = max(max_abs[name], err)
-            _check(f"{name} {label} max|diff|", err, 0.0)
+            _check(f"{name} {label} max|diff| (bit for bit, repeats)", err, 0.0)
     gen = torch.Generator(device=device).manual_seed(11)
     for rows in (n, edge_n):
         for W in tuple(seg_ws) + ("one_tile",):
@@ -1163,6 +1225,12 @@ def spmv_bound(plan, a, values, scale):
     return bound(n_bytes, 2 * E * m + (0 if scale is None else E))
 
 
+def gather_bound(n: int, C: int, table_len: int, size: int):
+    """``(bound_ms, bound_by)`` of one gather: C int32 codes a row and the
+    table read once, one value a row written; C - 1 adds a row."""
+    return bound(C * n * 4 + table_len * size + n * size, (C - 1) * n)
+
+
 def segsum_bound(plan, values):
     """``(bound_ms, bound_by)`` of one segment sum: the plan's perm and
     bounds and ``values`` read once, the (W, m) output written once; an add
@@ -1292,9 +1360,22 @@ def phase_times(device, n: int, k: int, card: str, mixed: dict, sparse: dict,
         t = _compare(f"gather<{suffix}> {n_rows} rows, C={C}", card,
                      lambda: gk.gather(table, codes, n_rows),
                      lambda: gk.gather_plain(table, codes, n_rows), library)
-        t["bound"] = bound(C * n_rows * 4 + n_rows * size + table.numel() * size,
-                           (C - 1) * n_rows)
+        t["bound"] = gather_bound(n_rows, C, table.numel(), size)
+        print(f"    bound {t['bound'][0]:.6f} ms by {t['bound'][1]}")
         times[f"gather<{suffix}>"] = t
+        # the window take (PERF.md rows 11-12): phase 3's sorted bounds,
+        # 10^6 + 1 of them into n_rows + 1 values, against src[idx]
+        src = torch.randn(n_rows + 1, device=device, dtype=dtype, generator=gen)
+        idx = torch.sort(torch.randint(0, n_rows + 1, (10**6 + 1,), device=device,
+                                       generator=gen)).values.to(torch.int32)
+        idx_long = idx.long()
+        t = _compare(f"gather<{suffix}> window take, {idx.numel()} sorted indices", card,
+                     lambda: gk.gather(src, idx), lambda: gk.gather_plain(src, idx, idx.numel()),
+                     lambda: src[idx_long])
+        t["bound"] = gather_bound(idx.numel(), 1, src.numel(), size)
+        print(f"    bound {t['bound'][0]:.6f} ms by {t['bound'][1]}")
+        times[f"gather<{suffix}> window take"] = t
+        del src, idx, idx_long
 
         # the segment sum at the mixed step's three shapes: the stacked tmv
         # and sandwich diagonal (W = 2000, m = 1) and cat x dense cells

@@ -13,9 +13,15 @@ _window_kernel_1plane`` / ``_window_kernel_2plane`` (the window take).  The
 TPU built a gather from lane shuffles and carried f64 as two f32 planes;
 Hopper gathers natively in either type.
 
-Bound: the bytes (C int32 codes in, one value per row out; the table stays
-in L2).  The kernel sums the C terms in order, as the plain version does, so
-the two agree exactly.
+Bound: the bytes (C int32 codes in, one value per row out; the table is
+read once, then from L1 and L2).  A thread takes a run of rows that fills
+one 16-byte store (4 in f32, 2 in f64): its codes in one load a plane,
+every table load of the run in flight at once, on one wave of resident
+blocks; a plane that is not aligned to its run (n odd or not a multiple of
+4, a view at an offset) takes scalar loads, and the last rows of a warp's
+tile go a row a thread (the kernel decides, from the pointers).  The kernel
+sums the C terms in order from the first, as the plain version does, so the
+two agree bit for bit.
 
 The wrapper takes the plain version only for a tensor on the CPU; for a
 CUDA tensor it launches the kernel or raises.
@@ -24,6 +30,8 @@ CUDA tensor it launches the kernel or raises.
 import ctypes
 
 import torch
+
+from .. import _build
 
 # Launch counts by instantiation: each rises by one where that kernel is
 # launched, nowhere else.
@@ -87,17 +95,26 @@ def gather(table: torch.Tensor, codes: torch.Tensor, n: int = None) -> torch.Ten
         raise ValueError("the CUDA gather needs contiguous codes")
     name = _NAMES[table.dtype]
     table = table.contiguous()
-    with torch.cuda.device(table.device):
-        lib = _library()
-        out = torch.empty(n, dtype=table.dtype, device=table.device)
-        err = getattr(lib, _SYMBOLS[name])(
-            table.data_ptr(), table.shape[0], codes.data_ptr(), n, codes.shape[0] // n,
-            out.data_ptr(), torch.cuda.current_stream(table.device).cuda_stream,
-        )
-        from .. import _build
+    device = table.device
+    if device.index == torch.cuda.current_device():
+        out = _launch(name, table, codes, n, device)
+    else:
+        with torch.cuda.device(device):
+            out = _launch(name, table, codes, n, device)
+    launches[name] += 1
+    return out
 
-        _build.raise_on(lib, err, "gather.cu kernel")
-        launches[name] += 1
+
+def _launch(name: str, table: torch.Tensor, codes: torch.Tensor, n: int, device):
+    """Launch ``name`` on ``device`` (the current device) and its current
+    stream; raise if the launch failed."""
+    lib = _library()
+    out = torch.empty(n, dtype=table.dtype, device=device)
+    err = getattr(lib, _SYMBOLS[name])(
+        table.data_ptr(), table.shape[0], codes.data_ptr(), n, codes.shape[0] // n,
+        out.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
+    )
+    _build.raise_on(lib, err, "gather.cu kernel")
     return out
 
 
@@ -105,7 +122,5 @@ def _library():
     """The built ``gather.cu`` with its C functions typed (built at first use)."""
     global _lib
     if _lib is None:
-        from .. import _build
-
         _lib = _build.bind("gather", {symbol: _ARGTYPES for symbol in _SYMBOLS.values()})
     return _lib

@@ -367,22 +367,51 @@ def test_default_device_is_the_card(cuda):
     assert np.all(np.isfinite(est.fit(X, rng.random(1000)).coef_))
 
 
+_BITS = {torch.float64: torch.int64, torch.float32: torch.int32}
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
-@pytest.mark.parametrize("C", [1, 2, 3])
-def test_gather_matches_plain_exactly(cuda, C, dtype):
+@pytest.mark.parametrize("C", [1, 2, 3, 4, 5, 6, 7, 8, 9])
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("n", [1, 7, 33, 100_003])
+def test_gather_matches_plain_exactly(cuda, n, offset, C, dtype):
+    """Every n % 4 (a thread takes runs of 4 rows in f32, 2 in f64), codes
+    views at offsets of 0 to 3 elements (planes off their runs' alignment,
+    each by its own amount) and past 3 planes (taken a plane at a time): bit
+    for bit the plain version, and again on a second launch."""
     from tabmat_torch.ops import gather_kernel as gk
 
     rng = np.random.default_rng(C)
-    n, width = 100_003, 777
-    codes = torch.as_tensor(rng.integers(-3, width + 3, C * n).astype(np.int32), device=cuda)
+    width = 777
+    flat = torch.as_tensor(rng.integers(-3, width + 3, C * n + offset).astype(np.int32),
+                           device=cuda)
+    codes = flat[offset:]
     table = torch.as_tensor(rng.standard_normal(width), dtype=dtype, device=cuda)
     name = f"gather<{'double' if dtype == torch.float64 else 'float'}>"
     before = gk.launches[name]
-    got = gk.gather(table, codes, n)
-    assert gk.launches[name] == before + 1
-    assert torch.equal(got, gk.gather_plain(table, codes, n))
+    got, again = gk.gather(table, codes, n), gk.gather(table, codes, n)
+    assert gk.launches[name] == before + 2
+    bits = _BITS[dtype]
+    assert torch.equal(got.view(bits), gk.gather_plain(table, codes, n).view(bits))
+    assert torch.equal(got.view(bits), again.view(bits))
     # an empty table (drop_first of a single level) gathers zeros
     assert torch.equal(gk.gather(table[:0], codes, n), torch.zeros_like(got))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_gather_edge_cases_match_plain_exactly(cuda, dtype):
+    """chip_smoke.py's phase-3 gather cases at 100,003 rows: all-sentinel
+    codes, an empty table, a 100,000-entry table, -0.0 with inf and NaN
+    behind the sentinels, among the others; bit for bit, and repeated."""
+    from tabmat_torch.ops import gather_kernel as gk
+
+    bits = _BITS[dtype]
+    for label, table, codes, n in _chip_smoke().gather_cases(
+            np.random.default_rng(5), cuda, dtype, 100_003):
+        got, again = gk.gather(table, codes, n), gk.gather(table, codes, n)
+        want = gk.gather_plain(table, codes, n)
+        assert torch.equal(got.view(bits), want.view(bits)), label
+        assert torch.equal(got.view(bits), again.view(bits)), label
 
 
 def _chip_smoke():

@@ -5,7 +5,9 @@ The JAX package runs as its own tests run it here: ``SegmentPlan`` on its
 argsort/cumsum route and ``take_matvec``, and the two Pallas kernels that
 have an interpret mode (``pallas_segsum_bucketed``, ``pallas_window_take``)
 interpreted at the sizes of ``tests/test_segsum_bucketed.py`` and
-``tests/test_window_take.py``.  Tolerances: ``atol=1e-12`` as in
+``tests/test_window_take.py``.  ``pallas_gather``'s kernels, which take no
+``interpret`` argument, run interpreted with ``pallas_call`` patched to
+interpret for the test's duration, unjitted.  Tolerances: ``atol=1e-12`` as in
 ``tests/test_matrices.py``, except where a test says why otherwise.
 """
 
@@ -15,7 +17,10 @@ import torch
 
 import jax.numpy as jnp
 
+from functools import partial
+
 from tabmat_tpu.ops import categorical_ops as tpu_cat_ops
+from tabmat_tpu.ops import pallas_gather
 from tabmat_tpu.ops import pallas_segsum_bucketed as psb
 from tabmat_tpu.ops import pallas_window_take as wt
 from tabmat_tpu.ops import segments as tpu_segments
@@ -128,6 +133,87 @@ def test_gather_of_sorted_indices_matches_interpreted_window_take(dtype, n, src_
         interpret=True))
     got = gather_kernel.gather(torch.tensor(src), torch.tensor(idx.astype(np.int32)))
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _interpreted_gather(monkeypatch, table, codes, n):
+    """``Σ_c table[codes[c·n + i]]`` through ``pallas_gather``'s kernel
+    (f32, or f64 as two f32 planes) interpreted, a plane at a time, the
+    planes summed in order in the table's type."""
+    monkeypatch.setattr(pallas_gather.pl, "pallas_call",
+                        partial(pallas_gather.pl.pallas_call, interpret=True))
+    fn = pallas_gather._gather_f64 if table.dtype == np.float64 else pallas_gather._gather_f32
+    out = None
+    for plane in codes.reshape(-1, n):
+        got = np.asarray(fn.__wrapped__(jnp.asarray(table),
+                                        jnp.asarray(pallas_gather.build_codes2d(plane)), n))
+        out = got if out is None else out + got
+    return out
+
+
+def _port_gather(table, codes, n, offset):
+    """The port's gather of ``codes`` handed over as a view at ``offset``."""
+    flat = torch.zeros(codes.size + offset, dtype=torch.int32)
+    flat[offset:] = torch.tensor(codes)
+    return gather_kernel.gather(torch.tensor(table), flat[offset:], n).numpy()
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("C", [1, 2, 3])
+@pytest.mark.parametrize("n,offset", [(1, 0), (6, 1), (33, 2), (1003, 3), (1000, 0)])
+def test_gather_matches_interpreted_pallas_gather(monkeypatch, dtype, C, n, offset):
+    """C stacked planes (each offset by the widths before it, the pad code
+    past them), rows that leave every n % 4, codes views at offsets: equal
+    to the interpreted kernel's planes summed in order."""
+    rng = np.random.default_rng(C * 1000 + n)
+    width = 50
+    table = _pair_representable(rng, C * width, dtype)
+    codes = np.concatenate([np.where(rng.random(n) < 0.1, C * width,
+                                     rng.integers(0, width, n) + c * width)
+                            for c in range(C)]).astype(np.int32)
+    codes[rng.random(C * n) < 0.05] = -1
+    want = _interpreted_gather(monkeypatch, table, codes, n)
+    np.testing.assert_array_equal(_port_gather(table, codes, n, offset), want)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("C", [1, 2])
+def test_gather_signed_zero_and_inf_behind_sentinels(monkeypatch, dtype, C):
+    """A table with inf and NaN that only sentinels would reach (a clamped
+    or multiplied-by-0 sentinel would read them) and -0.0 that codes do:
+    equal to the interpreted kernel, and -0.0 kept where every term of a
+    row is -0.0 (the sum starts from the first term, not from 0)."""
+    rng = np.random.default_rng(C)
+    n, width = 1003, 40
+    table = _pair_representable(rng, width, dtype)
+    table[[0, 1, width - 1]] = (np.inf, -0.0, np.nan)
+    codes = rng.integers(1, width - 1, C * n)
+    codes[rng.random(C * n) < 0.4] = 1
+    pick = rng.random(C * n) < 0.2
+    codes[pick] = rng.choice(np.array([-1, -2, width, width + 5]), int(pick.sum()))
+    codes = codes.astype(np.int32)
+    got = _port_gather(table, codes, n, offset=1)
+    np.testing.assert_array_equal(got, _interpreted_gather(monkeypatch, table, codes, n))
+    assert np.all(np.isfinite(got))
+    planes = codes.reshape(C, n)
+    all_neg_zero = np.all(planes == 1, axis=0)
+    assert all_neg_zero.any()
+    np.testing.assert_array_equal(np.signbit(got) & (got == 0), all_neg_zero)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("n,offset", [(1001, 1), (1002, 2), (1003, 3)])
+def test_window_take_edges_match_interpreted(dtype, n, offset):
+    """The window take's sorted indices at n % 4 != 0, handed over as views
+    at offsets: exactly equal to the interpreted window kernel."""
+    rng = np.random.default_rng(n)
+    src_len = 700
+    idx = np.sort(rng.integers(0, src_len, n))
+    plan = wt.build_plan(idx)
+    src = _pair_representable(rng, src_len, dtype)
+    want = np.asarray(wt.monotone_take(
+        jnp.asarray(src), plan, jnp.asarray(plan.codes2d), jnp.asarray(plan.ws),
+        interpret=True))
+    np.testing.assert_array_equal(_port_gather(src, idx.astype(np.int32), n, offset), want)
 
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32, np.int64])
