@@ -103,20 +103,41 @@ Phases, each printed as it runs:
    400k x 160, 400k x 200, 1M x 177, 1M x 129, 200k x 1000 (f32 and f64)
    and ``sparse_wide``'s panels, and one
    ``irls_step`` on each path (7b's formula design among them) in each
-   inner precision, with the kernel launches per step.
+   inner precision, with the kernel launches per step;
+9. the benchmark CLI, ``tabmat_torch.bench.main.main(argv)`` in process
+   with the arguments a user types and no ``--device``: each of the
+   reference's eight designs at ``--scale 1.0`` (dense 4M x 10, sparse
+   400k x 100, sparse_narrow 3M x 3, sparse_wide 40k x 10k, one_cat 1M x
+   100k, two_cat 1M x (1k + 1k), dense_cat and dense_smallcat 3M x (5 + 1k
+   + 1k) and (5 + 10 + 1k)) with ``--include_baseline --bench_memory
+   --output build/bench_cli/<design>.csv``, then ``--standardized`` on
+   dense, sparse, two_cat and dense_cat: every op timed, each device result
+   within 1e-13 (sandwich) or 1e-12 (matvec, transpose-matvec) of its
+   numpy/scipy baseline on the same inputs, the device memory columns
+   present, each design's kernels launched (``CLI_KERNELS``); then the
+   sparse design under a zero device-cache budget: no pair plan, no
+   mirror, nothing charged, under 1% of the mirror's bytes kept, the same
+   sandwich; and the ledger's charge of the unbudgeted pair plan equal to
+   its tensors' bytes and within the CLI's ``hbm_cache_bytes``.  The CLI's
+   own JSON rows go to ``build/bench_cli/<design>.jsonl``; the phase prints
+   each design's table.
 
-The launch counts are set to 0 just before each main-path phase (4 to 7b)
-and read just after; each path must launch its kernels (the narrow and
-wide paths and the mixed and sparse paths' 5-column dense cell the width
-dispatch's kernels, the sparse main path both sparse products), and no
-path may launch ``sandwich<double>`` or ``sandwich<float>``.  Any failed
+The launch counts are set to 0 just before each main-path phase (4 to 7b,
+and each design of 9) and read just after; each path must launch its
+kernels (the narrow and wide paths and the mixed and sparse paths' 5-column
+dense cell the width dispatch's kernels, the sparse main path both sparse
+products), and no path may launch ``sandwich<double>`` or
+``sandwich<float>``.  Any failed
 check raises, so the script exits 0 only when every check passed.  The last
 three lines are the ``kernels`` JSON object (seventeen instantiations),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 Without CUDA it exits non-zero and prints no result.
 """
 
+import contextlib
+import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1462,6 +1483,184 @@ def phase_times(device, n: int, k: int, card: str, mixed: dict, sparse: dict,
     return times
 
 
+# phase 9: the benchmark CLI (python -m tabmat_torch.bench.main) at the
+# reference's design sizes, each design's kernels in its three f64 ops:
+# the dense block's width dispatch (4M x 10, 3M x 5: the narrow kernel),
+# the sparse products (the pair sandwich too), sparse_wide's panels through
+# the FP64 tensor cores, the categoricals' gather and segment sums (W =
+# 2000 stacked, the 10^6-cell cat x cat plan of two_cat and dense_cat)
+CLI_KERNELS = {
+    "dense": ("sandwich_narrow<double>",),
+    "sparse": ("spmv<double>",),
+    "sparse_narrow": ("spmv<double>",),
+    "sparse_wide": ("spmv<double>", "sandwich_mma<double>"),
+    "one_cat": ("gather<double>", "segsum_slots<double>"),
+    "two_cat": ("gather<double>", "segsum<double>", "segsum_slots<double>"),
+    "dense_cat": ("sandwich_narrow<double>", "gather<double>", "segsum<double>",
+                  "segsum_slots<double>"),
+    "dense_smallcat": ("sandwich_narrow<double>", "gather<double>", "segsum<double>"),
+}
+# the standardized variants of docs/benchmarks/run_round5.sh
+CLI_STANDARDIZED = ("dense", "sparse", "two_cat", "dense_cat")
+# each op's device result against its numpy/scipy baseline on the same inputs
+CLI_TOL = {"sandwich": F64_TOL, "matvec": OP_TOL, "transpose-matvec": OP_TOL}
+CLI_ITERATIONS = 20
+# under a zero budget the sparse sandwich keeps less than this share of the
+# densified mirror's bytes on the card
+BUDGET_CACHE_SHARE = 0.01
+
+
+def _cli_table(label: str, rows: list) -> str:
+    """One design's rows as a table: the device time beside the baseline's."""
+    lines = [f"  {label}: op, ms, numpy/scipy ms, ratio, max_rel_err, cache MB, "
+             "total MB, peak MB, host peak KB"]
+    device_rows = {r["operation"]: r for r in rows if r["library"] == "tabmat_torch"}
+    base_rows = {r["operation"]: r for r in rows if r["library"] == "numpy/scipy"}
+
+    def mb(row, key):
+        return "-" if row.get(key) is None else f"{row[key] / 2**20:.3f}"
+
+    for op, r in device_rows.items():
+        b = base_rows[op]
+        host = r.get("peak_mem_bytes")
+        lines.append(
+            f"    {op}: {r['time_s'] * 1e3:.4f}, {b['time_s'] * 1e3:.4f}, "
+            f"{b['time_s'] / r['time_s']:.2f}x, {b['max_rel_err']:.2e}, "
+            f"{mb(r, 'hbm_cache_bytes')}, {mb(r, 'hbm_total_bytes')}, {mb(r, 'hbm_peak_bytes')}, "
+            f"{'-' if host is None else f'{host / 1024:.1f}'}")
+    return "\n".join(lines)
+
+
+def _run_cli(argv: list, log_path: str) -> list:
+    """``tabmat_torch.bench.main.main(argv)``, its printed rows into
+    ``log_path`` (the contract's JSON lines stay the only ones here)."""
+    from tabmat_torch.bench import main as bench
+
+    with open(log_path, "w") as log, contextlib.redirect_stdout(log):
+        return bench.main(argv)
+
+
+def _check_cli_rows(label: str, rows: list, on_card: bool) -> None:
+    ops = [r["operation"] for r in rows if r["library"] == "tabmat_torch"]
+    if sorted(ops) != sorted(CLI_TOL):
+        raise AssertionError(f"{label}: the CLI timed {ops}")
+    for r in rows:
+        if not (np.isfinite(r["time_s"]) and r["time_s"] > 0):
+            raise AssertionError(f"{label} {r['operation']} {r['library']}: time_s {r['time_s']}")
+        if r["library"] == "numpy/scipy":
+            _check(f"{label} {r['operation']} relerr against numpy/scipy", r["max_rel_err"],
+                   CLI_TOL[r["operation"]])
+        elif on_card:
+            for key in ("hbm_cache_bytes", "hbm_total_bytes", "hbm_peak_bytes"):
+                if not r.get(key, -1) >= 0:
+                    raise AssertionError(f"{label} {r['operation']}: {key} = {r.get(key)}")
+
+
+def phase_bench_cli(device=None, scale: float = 1.0, out_dir: str = "build/bench_cli",
+                    n_iterations: int = CLI_ITERATIONS, card: str = "") -> dict:
+    """The benchmark CLI in process, as a user runs it: each of the eight
+    designs with ``--include_baseline --bench_memory --output``, then the
+    four standardized variants, then the sparse design under a zero
+    device-cache budget.  ``device=None`` gives no ``--device``: the card.
+
+    Returns ``{"rows": label -> rows, "launches": label -> counts}``."""
+    from tabmat_torch import _config
+    from tabmat_torch.bench import main as bench
+    from tabmat_torch.bench.generate import get_all_benchmark_matrices
+    from tabmat_torch.utils import tensor_bytes
+
+    t0 = time.perf_counter()
+    on_card = device is None or torch.device(device).type == "cuda"
+    os.makedirs(out_dir, exist_ok=True)
+    print(f"[9] the benchmark CLI at --scale {scale} ({card}); device bytes in use at the start: "
+          f"{torch.cuda.memory_allocated() if on_card else 0}", flush=True)
+    dev_args = [] if device is None else ["--device", str(device)]
+    common = ["--scale", str(scale), "--n_iterations", str(n_iterations)] + dev_args
+    report = {"rows": {}, "launches": {}}
+    runs = [(name, False) for name in CLI_KERNELS] + [(name, True) for name in CLI_STANDARDIZED]
+    for name, standardized in runs:
+        label = ("std_" if standardized else "") + name
+        argv = ["--matrix_name", name, "--include_baseline", "--bench_memory",
+                "--output", os.path.join(out_dir, f"{label}.csv")] + common
+        if standardized:
+            argv.append("--standardized")
+        reset_launch_counts()
+        rows = _run_cli(argv, os.path.join(out_dir, f"{label}.jsonl"))
+        counts = launch_counts()
+        print(_cli_table(label, rows), flush=True)
+        print(f"    kernel launches: {({k: v for k, v in counts.items() if v})}", flush=True)
+        _check_cli_rows(label, rows, on_card)
+        missing = [k for k in CLI_KERNELS[name] if counts[k] == 0]
+        if on_card and missing:
+            raise AssertionError(f"the CLI's {label} did not launch {missing}")
+        tiled = [k for k in ("sandwich<double>", "sandwich<float>") if counts[k]]
+        if tiled:
+            raise AssertionError(f"the CLI's {label} launched {tiled}, which no route names")
+        report["rows"][label], report["launches"][label] = rows, counts
+    peaks = {label: next(r.get("peak_mem_bytes") for r in report["rows"][label]
+                         if r["operation"] == "transpose-matvec")
+             for label in (f"std_{name}" for name in CLI_STANDARDIZED)}
+    print(f"  host peak of the standardized transpose-matvecs (bytes): {peaks}", flush=True)
+
+    # the budget: the sparse design under a zero budget keeps neither the
+    # pair plan nor the densified mirror, and takes the row panels
+    sparse_rows = report["rows"]["sparse"]
+    make_sparse = get_all_benchmark_matrices(scale=scale, device=device)["sparse"]
+    _config.set_cache_budget_mb(0)
+    try:
+        reset_launch_counts()
+        rows = _run_cli(["--matrix_name", "sparse"] + common,
+                        os.path.join(out_dir, "budget0_sparse.jsonl"))
+        budgeted = make_sparse()
+        d = torch.as_tensor(bench.op_inputs(budgeted.shape, "sandwich"), device=budgeted.device)
+        S0 = budgeted.sandwich(d)
+        counts = launch_counts()
+        print(f"  zero budget, sparse: (op, time_s, hbm_cache_bytes) "
+              f"{[(r['operation'], r['time_s'], r.get('hbm_cache_bytes')) for r in rows]}; "
+              f"kernel launches {({k: v for k, v in counts.items() if v})}", flush=True)
+        report["rows"]["budget0_sparse"], report["launches"]["budget0_sparse"] = rows, counts
+        if budgeted._pair != () or budgeted._dense is not None:
+            raise AssertionError("the zero-budget sparse design kept a pair plan or a mirror")
+        if _config.cache_spent_bytes() != 0:
+            raise AssertionError(f"the zero budget spent {_config.cache_spent_bytes()} bytes")
+        mirror = 8 * budgeted.shape[0] * budgeted.shape[1]
+        if on_card:
+            cache = next(r["hbm_cache_bytes"] for r in rows if r["operation"] == "sandwich")
+            print(f"  zero budget: the sandwich keeps {cache} bytes on the card, the mirror "
+                  f"would take {mirror}", flush=True)
+            if not cache < BUDGET_CACHE_SHARE * mirror:
+                raise AssertionError(f"the zero-budget sandwich keeps {cache} bytes")
+            if counts["sandwich_mma_tri<double>"] == 0:
+                raise AssertionError("the zero-budget row panels did not launch "
+                                     "sandwich_mma_tri<double>")
+    finally:
+        _config.set_cache_budget_mb(None)
+    # a budget that refuses nothing records the charge of what the sandwich built
+    _config.set_cache_budget_mb(1 << 30)
+    try:
+        free = make_sparse()
+        S1 = free.sandwich(d)
+        charge = _config.cache_spent_bytes()
+        prod, plan = free._pair
+        built = tensor_bytes((prod, plan.perm, plan.bounds))
+        cache = next(r.get("hbm_cache_bytes") for r in sparse_rows
+                     if r["operation"] == "sandwich")
+        print(f"  sparse: the ledger's charge {charge} bytes, the pair plan's tensors {built}, "
+              f"the CLI's sandwich hbm_cache_bytes {cache}", flush=True)
+        if charge != built or free._dense is not None:
+            raise AssertionError(f"the charge {charge} is not the pair plan's {built} bytes")
+        if on_card and not charge <= cache:
+            raise AssertionError(f"the charge {charge} exceeds the sandwich's cache {cache}")
+        del free, prod, plan
+    finally:
+        _config.set_cache_budget_mb(None)
+        _config._cache_refund(_config.cache_spent_bytes())
+    _check("zero-budget sparse sandwich against the unbudgeted one", _relerr(
+        S0.cpu().numpy(), S1.cpu().numpy()), F64_TOL)
+    print(f"  phase 9 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA card",
@@ -1527,6 +1726,12 @@ def main() -> int:
             raise AssertionError(f"a main path launched {tiled}, which no route names")
 
     times = phase_times(device, N, K, card, mixed, sparse, cases, wide, frames)
+    # phase 9 reads the card's memory: free the earlier phases' tensors first
+    del mixed, sparse, cases, wide, frames, designs, block
+    gc.collect()
+    torch.cuda.empty_cache()
+    cli = phase_bench_cli(card=card)
+    main_launches.extend(cli["launches"].values())
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         bound_ms, bound_by = times[name]["bound"]

@@ -10,7 +10,8 @@ segment product (``ops/spmv_kernel.py``) on the matrix's device:
 - ``transpose_matvec`` → the CSC layout (segments = columns);
 - ``sandwich``         → the pair plan (within-row nonzero pairs keyed by
   column pair) while it fits its budgets, else the densified matrix on the
-  device through the dense sandwich kernel; past both budgets row panels of
+  device through the dense sandwich kernel; past both budgets (or where the
+  device-cache ledger, ``_config.cache_charge``, refuses both) row panels of
   the CSR layout, each densified on the device and added in order into one
   (k, k) result by the dense sandwich's width dispatch (the FP64 tensor
   cores at the reference's ``sparse_wide``, 40k × 10k);
@@ -27,7 +28,7 @@ import numpy as np
 import torch
 from scipy import sparse as sps
 
-from .._config import resolve_device
+from .._config import cache_charge, resolve_device
 from ..ops import dense_ops, sparse_ops
 from ..utils import (
     _check_indexer,
@@ -42,6 +43,7 @@ from ..utils import (
     result_like,
     rows_to_mask,
     set_up_rows_or_cols,
+    tensor_bytes,
     to_numpy,
     to_tensor,
 )
@@ -160,7 +162,8 @@ class SparseMatrix(MatrixBase):
 
     def _pair_parts(self):
         """``(prod, plan)`` of the pair sandwich, built once; None past the
-        budgets (``Σ_r nnz_r²`` pairs or k² segments)."""
+        budgets (``Σ_r nnz_r²`` pairs or k² segments) or when the device-cache
+        ledger refuses its bytes (``_config.cache_charge``)."""
         if self._pair is None:
             k = self.shape[1]
             if (
@@ -169,16 +172,23 @@ class SparseMatrix(MatrixBase):
             ):
                 self._pair = ()
             else:
-                self._pair = sparse_ops.pair_plan(self.array_csr, self._device)
+                prod, plan = sparse_ops.pair_plan(self.array_csr, self._device)
+                # a fresh plan keeps no kernel table yet; those built at its
+                # first launch are the kernel's inputs and are not charged
+                nbytes = tensor_bytes((prod, plan.perm, plan.bounds))
+                self._pair = (prod, plan) if cache_charge(nbytes, self) else ()
         return self._pair or None
 
     def _dense_mirror(self) -> Optional[torch.Tensor]:
         """The densified matrix on the device for the sandwich, or None past
-        its budgets."""
+        its budgets or when the device-cache ledger refuses its bytes (the JAX
+        package's charge, ``tabmat_tpu/models/sparse.py:215-224``)."""
         n, k = self.shape
         if k > DENSE_SANDWICH_MAX_COLS or n * k > DENSE_SANDWICH_MAX_ELEMENTS:
             return None
         if self._dense is None:
+            if not cache_charge(self.dtype.itemsize * n * k, self):
+                return None
             self._dense = torch.as_tensor(self._array.toarray(), device=self._device)
         return self._dense
 
@@ -297,7 +307,8 @@ class SparseMatrix(MatrixBase):
         """``X[rows, cols].T @ diag(d[rows]) @ X[rows, cols]``.
 
         The pair plan first, then the densified matrix; past both budgets
-        (a ``sparse_wide``-like shape) densified row panels.
+        (a ``sparse_wide``-like shape), or where the device-cache ledger
+        refuses both, densified row panels.
         """
         d_t = to_tensor(d, device=self._device)
         check_sandwich_compatible(self, d_t)

@@ -27,7 +27,6 @@ from ..utils import (
     check_transpose_matvec_out_shape,
     is_identity_index,
     set_up_rows_or_cols,
-    setup_restrictions,
     to_numpy,
 )
 from .base import MatrixBase
@@ -157,11 +156,14 @@ class StandardizedMatrix:
 
         res = self.mat.transpose_matvec(other, rows, cols)
 
-        rows_idx, cols_idx = setup_restrictions(self.shape, rows, cols, np.int64)
+        # no row index array without a row restriction: np.arange(n) would be
+        # the call's only host allocation of n elements
+        cols_idx = set_up_rows_or_cols(cols, self.shape[1], np.int64)
         full_cols = is_identity_index(cols, self.shape[1])
-        if rows is None or len(rows_idx) == self.shape[0]:
+        if rows is None or len(rows) == self.shape[0]:
             other_sum = other.sum(0)
         else:
+            rows_idx = set_up_rows_or_cols(rows, self.shape[0], np.int64)
             ridx = torch.as_tensor(rows_idx, device=other.device) if is_t else rows_idx
             other_sum = other[ridx].sum(0)
 

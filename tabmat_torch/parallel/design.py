@@ -31,9 +31,11 @@ all nonzeros or rows (``design.py:493-505, 538-551, 661-664, 775-809``).
 import numpy as np
 import torch
 
+from .._config import cache_charge
 from ..models.categorical import CategoricalMatrix
 from ..models.sparse import SparseMatrix
 from ..ops import dense_ops, gather_kernel, sandwich_kernel, segments, sparse_ops
+from ..utils import tensor_bytes
 
 # The explicit sandwich needs a full K1·K2-segment plan for every pair of
 # categoricals: the product of their widths must be at most this (the
@@ -58,6 +60,9 @@ class _DenseBlock:
 
     def astype_float(self, dtype) -> "_DenseBlock":
         return _DenseBlock(self.X.to(dtype), self.positions)
+
+    def float_tensors(self) -> list:
+        return [self.X]
 
     def matvec(self, v):
         return dense_ops.matvec(self.X, v)
@@ -175,6 +180,9 @@ class _SparseBlock:
                                                                   self.cat))
         return new
 
+    def float_tensors(self) -> list:
+        return [p[0] for p in (self.csr, self.csc, self.pair, self.cat) if p is not None]
+
     def matvec(self, v):
         return sparse_ops.csr_matvec(*self.csr, v.contiguous())
 
@@ -282,22 +290,28 @@ class DeviceDesign:
         The float32 design is built on the first call and kept, so an IRLS
         loop with a float32 inner solve casts the dense block once per
         design instead of once per step.  The codes and plans are shared.
+        Its float32 blocks are charged to the device-cache ledger
+        (``_config.cache_charge``) with the design as owner; when refused,
+        the cast design is returned and not kept, so each call casts anew.
         """
         if dtype == self.dtype:
             return self
         if dtype != torch.float32:
             raise ValueError(f"astype_float supports float32, got {dtype}")
-        if self._f32 is None:
+        if self._f32 is not None:
+            return self._f32
 
-            def cast(x):
-                return None if x is None else x.to(dtype)
+        def cast(x):
+            return None if x is None else x.to(dtype)
 
-            blocks = [b if b.kind == "cat" else b.astype_float(dtype) for b in self.blocks]
-            d = object.__new__(DeviceDesign)
-            d.__dict__.update(self.__dict__)
-            d.blocks, d.dtype, d.shift, d.mult = blocks, dtype, cast(self.shift), cast(self.mult)
+        blocks = [b if b.kind == "cat" else b.astype_float(dtype) for b in self.blocks]
+        d = object.__new__(DeviceDesign)
+        d.__dict__.update(self.__dict__)
+        d.blocks, d.dtype, d.shift, d.mult = blocks, dtype, cast(self.shift), cast(self.mult)
+        if cache_charge(tensor_bytes(t for b in blocks if b.kind != "cat"
+                                     for t in b.float_tensors()), self):
             self._f32 = d
-        return self._f32
+        return d
 
     # -- ops -------------------------------------------------------------------
 

@@ -17,4 +17,5 @@ from .arrays import (  # noqa: F401
     add_into_out,
     rows_to_mask,
     cols_to_mask,
+    tensor_bytes,
 )

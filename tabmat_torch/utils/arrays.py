@@ -94,3 +94,9 @@ def cols_to_mask(cols, n_cols: int, dtype, device) -> Optional[torch.Tensor]:
     """Turn a column active-set into a 0/1 mask over columns on ``device``."""
     return rows_to_mask(cols, n_cols, dtype, device)
 
+
+
+def tensor_bytes(tensors) -> int:
+    """Bytes of the tensors in ``tensors`` (what a cache charges against
+    ``_config.cache_charge``)."""
+    return sum(t.numel() * t.element_size() for t in tensors)

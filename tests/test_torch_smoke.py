@@ -35,7 +35,8 @@ def test_import_leaves_jax_out():
     code = (
         "import sys, tabmat_torch, tabmat_torch.convert, tabmat_torch.parallel.design, "
         "tabmat_torch._build, tabmat_torch.constructors, tabmat_torch.formula, "
-        "tabmat_torch.formula.engine, chip_smoke; "
+        "tabmat_torch.formula.engine, tabmat_torch.bench.main, tabmat_torch.bench.generate, "
+        "tabmat_torch.bench.memory, tabmat_torch.bench.visualize, chip_smoke; "
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m); "
         "assert 'tabmat_tpu' not in sys.modules"
     )
@@ -43,6 +44,21 @@ def test_import_leaves_jax_out():
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
     )
     assert out.returncode == 0, out.stderr[-2000:]
+
+
+def test_bench_cli_phase_on_cpu(tmp_path):
+    """Phase 9 at a tiny scale: the CLI's twelve designs with their
+    baselines, and the sparse design under a zero budget."""
+    smoke = _chip_smoke()
+    report = smoke.phase_bench_cli(torch.device("cpu"), scale=0.0005, out_dir=str(tmp_path),
+                                   n_iterations=2)
+    labels = list(smoke.CLI_KERNELS) + [f"std_{name}" for name in smoke.CLI_STANDARDIZED]
+    assert list(report["rows"]) == labels + ["budget0_sparse"]
+    for label in labels:
+        rows = report["rows"][label]
+        assert [r["library"] for r in rows] == ["tabmat_torch", "numpy/scipy"] * 3
+        assert (tmp_path / f"{label}.csv").exists()
+    assert all(v == 0 for counts in report["launches"].values() for v in counts.values())
 
 
 def test_main_path_phase_on_cpu():
