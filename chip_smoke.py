@@ -120,10 +120,29 @@ Phases, each printed as it runs:
    sandwich; and the ledger's charge of the unbudgeted pair plan equal to
    its tensors' bytes and within the CLI's ``hbm_cache_bytes``.  The CLI's
    own JSON rows go to ``build/bench_cli/<design>.jsonl``; the phase prints
-   each design's table.
+   each design's table;
+10. the multi-device path (``tabmat_torch.parallel``) on phase 7's design:
+   10a, one NCCL rank in this process (``make_mesh(1)``):
+   ``DeviceDesign.shard`` -> ``irls_step`` in both inner precisions and 4
+   steps of ``fit_glm``, each bit for bit the single device's (a one-rank
+   all-reduce is a copy), and the step's ms beside the single device's;
+   10b, eight ranks sharing the card over gloo with CUDA tensors (NCCL
+   refuses two ranks on one device), the mesh of
+   ``__graft_entry__.dryrun_multichip`` (dp = 4 x mp = 2): the user path
+   with the dense columns over ``mp`` in both inner precisions, the same
+   step on a two-level mesh (dcn = 2 x dp = 2 x mp = 2, rows over
+   ``("dcn", "dp")``), ``sharded_sandwich`` at 1,000,000 x 50 (its relerr
+   against numpy on a line of its own), ``sharded_transpose_matvec``,
+   ``sharded_segment_sum`` (W = 1000) and ``mixed_irls_step`` on
+   ``build_mixed_design(1_000_000, 5, 100, 1000, density=0.01)``, each
+   held against the single device within the dryrun's bounds (rtol 1e-8,
+   atol 1e-10; the float32 inner step 1e-4), every rank holding the same
+   bits and launching the sparse path's kernels; the ranks' step times
+   are printed as host-staged (gloo moves a card's tensor through the
+   host), no speed figure.
 
 The launch counts are set to 0 just before each main-path phase (4 to 7b,
-and each design of 9) and read just after; each path must launch its
+each design of 9, 10a and each rank of 10b) and read just after; each path must launch its
 kernels (the narrow and wide paths and the mixed and sparse paths' 5-column
 dense cell the width dispatch's kernels, the sparse main path both sparse
 products), and no path may launch ``sandwich<double>`` or
@@ -1661,6 +1680,322 @@ def phase_bench_cli(device=None, scale: float = 1.0, out_dir: str = "build/bench
     return report
 
 
+# phase 10: the multi-device path (tabmat_torch.parallel) on the one card.
+# 10a: one NCCL rank in this process; 10b: the mesh of
+# __graft_entry__.dryrun_multichip (dp = 4 x mp = 2, MULTICHIP_r05.json),
+# eight ranks sharing the card over gloo with CUDA tensors (NCCL refuses two
+# ranks on one device), each rank launching the kernels on its rows
+MULTI_WORLD, MULTI_MP = 8, 2
+MULTI_2LEVEL = (2, 2, 2)  # dcn, dp, mp
+MULTI_SANDWICH = (N, K)
+MULTI_SEG_W = 1000
+MULTI_MIXED = (N, MIX_KD, SP_KS, MIX_LEVELS)
+MULTI_FIT_STEPS = 4
+# the CG iterations of __graft_entry__.dryrun_multichip's steps, which its
+# bounds hold.  Past about ten, CG on these designs has lost the
+# orthogonality of its directions and moves beta by amounts that rounding
+# decides: with n_cg=16 a Hessian summed over 4 row shards instead of 1
+# moves the step past those bounds (PERF.md)
+MULTI_N_CG = 6
+# the sparse main path's kernels (phase 7), on every rank's rows
+MULTI_KERNELS = SPARSE_KERNELS + NARROW_KERNELS + ("gather<double>",) + SEGSUM_KERNELS
+# __graft_entry__.py:124, 144, 212: a float64 result against the single
+# device's; the float32 inner solve's step as tests/test_torch_glm.py holds it
+MULTI_STEP_TOL = {"rtol": 1e-8, "atol": 1e-10}
+MULTI_F32_TOL = 1e-4
+
+
+def sparse_path_split(inputs: dict, device):
+    """Phase 7's design (5 dense columns, the sparse block, two categoricals)
+    from ``multichip_inputs``' arrays, its matrices on ``device``."""
+    import tabmat_torch as tt
+
+    from scipy import sparse as sps
+
+    levels = inputs["levels"]
+    data, indices, indptr = (t.numpy() for t in inputs["block"])
+    block = sps.csc_matrix((data, indices, indptr), shape=(len(inputs["y"]), len(indptr) - 1))
+    return tt.SplitMatrix(
+        [tt.DenseMatrix(inputs["Xd"].numpy(), device=device),
+         tt.SparseMatrix(block, device=device)]
+        + [tt.CategoricalMatrix(c.numpy(), categories=np.arange(levels), device=device)
+           for c in inputs["codes"]])
+
+
+def multichip_inputs(block, n: int, kd: int, levels: int, sandwich_shape: tuple, seg_w: int,
+                     mixed_shape: tuple, seed: int = 1) -> dict:
+    """Phase 10's host data, from seeds: phase 7's design with a Poisson
+    target, the sharded sandwich's X and d, the segment sum's codes, and the
+    mixed design (``build_mixed_design``) with its target.  CPU tensors, the
+    sparse block's too, so that the spawned ranks share them instead of
+    copying (a pickled scipy matrix of 10^6 nonzeros slowed eight ranks'
+    start more than all their work)."""
+    from tabmat_torch.parallel.distributed import build_mixed_design
+
+    rng = np.random.default_rng(seed)
+    t = torch.as_tensor
+    inputs = {"levels": levels, "block": tuple(t(a) for a in (block.data, block.indices,
+                                                              block.indptr)),
+              "Xd": t(rng.standard_normal((n, kd))),
+              "codes": [t(rng.integers(0, levels, n).astype(np.int32)) for _ in range(2)]}
+    rng = np.random.default_rng(seed + 10)
+    inputs["y"] = t(rng.poisson(1.0, n).astype(np.float64))
+    ns, ks = sandwich_shape
+    inputs["X"], inputs["d"] = t(rng.standard_normal((ns, ks))), t(rng.random(ns))
+    inputs["v"] = t(rng.standard_normal(ns))
+    inputs["seg_codes"] = t(rng.integers(0, seg_w, ns).astype(np.int32))
+    inputs["seg_w"] = seg_w
+    inputs["mixed"] = build_mixed_design(*mixed_shape, seed=0, density=SPARSE_DENSITY,
+                                         device="cpu")
+    inputs["mixed_y"] = t(rng.poisson(1.0, mixed_shape[0]).astype(np.float64))
+    return inputs
+
+
+def multichip_rank(device, inputs: dict, two_level: tuple, mp: int) -> dict:
+    """One rank of phase 10b: the user path (``DeviceDesign.shard`` with the
+    dense columns over ``mp``, ``irls_step`` in both inner precisions), the
+    same step on a two-level mesh, ``sharded_sandwich``,
+    ``sharded_transpose_matvec``, ``sharded_segment_sum`` and
+    ``mixed_irls_step`` on the rank's rows.  Returns the rank's results,
+    its kernel launches and its host-staged step time."""
+    import torch.distributed as dist
+    from tabmat_torch.glm import irls_step
+    from tabmat_torch.parallel import shard_ops
+    from tabmat_torch.parallel.design import DeviceDesign
+    from tabmat_torch.parallel.distributed import mixed_irls_step, shard_mixed_design
+    from tabmat_torch.parallel.mesh import (all_reduce, make_mesh, make_mesh_2level,
+                                            mesh_device, shard_rows)
+
+    t0 = time.perf_counter()
+    mesh = make_mesh(dist.get_world_size(), mp=mp, device=device)
+    mesh2 = make_mesh_2level(*two_level, device=device)
+    dev = mesh_device(mesh)
+    source = DeviceDesign.from_matrix(sparse_path_split(inputs, "cpu"))
+    out = {"rank": dist.get_rank(), "device": str(dev), "setup_s": time.perf_counter() - t0}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def step(design, m, rows, inner):
+        y = shard_rows(inputs["y"], m, rows)
+        w = torch.ones_like(y)
+        b0 = torch.zeros(design.shape[1], dtype=torch.float64, device=dev)
+        return irls_step(design, y, w, b0, family="poisson", n_cg=MULTI_N_CG,
+                         inner_precision=inner)
+
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    design = source.shard(mesh, dense_cols="mp")
+    out["n_local"] = design.n_local
+    for inner in ("float64", "float32"):
+        out[f"step_{inner}"] = step(design, mesh, "dp", inner).cpu().numpy()
+    two = source.shard(mesh2, rows=("dcn", "dp"), dense_cols="mp")
+    out["step_two_level"] = step(two, mesh2, ("dcn", "dp"), "float64").cpu().numpy()
+    Xs, ds, vs, cs = shard_ops.place_row_sharded(mesh, inputs["X"], inputs["d"], inputs["v"],
+                                                 inputs["seg_codes"])
+    out["sandwich"] = shard_ops.sharded_sandwich(Xs, ds, mesh).cpu().numpy()
+    out["tmv"] = shard_ops.sharded_transpose_matvec(Xs, vs, mesh).cpu().numpy()
+    out["segment_sum"] = shard_ops.sharded_segment_sum(vs, cs, inputs["seg_w"],
+                                                       mesh).cpu().numpy()
+    dz = shard_mixed_design(inputs["mixed"], mesh)
+    y = shard_rows(inputs["mixed_y"], mesh)
+    k = dz.dense.shape[1] + dz.sp_csc_bounds.shape[0] - 1 + dz.cat_bounds.shape[0] - 1
+    out["mixed_step"] = mixed_irls_step(dz, y, torch.ones_like(y),
+                                        torch.zeros(k, dtype=torch.float64, device=dev),
+                                        n_cg=MULTI_N_CG, mesh=mesh).cpu().numpy()
+    sync()
+    out["launches"] = launch_counts()
+    out["path_s"] = time.perf_counter() - t0
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        step(design, mesh, "dp", "float64")
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["step_ms"] = float(np.median(times))
+    # the step's two largest collectives alone: the dense columns' gather
+    # within the mp group and the (k, k) Hessian's all-reduce over dp
+    dense = next(b for b in design.blocks if b.kind == "dense")
+    H = torch.zeros((design.shape[1],) * 2, dtype=torch.float64, device=dev)
+    for key, fn in (("gather", dense.full), ("hessian_all_reduce",
+                                             lambda: all_reduce(H, mesh, "dp"))):
+        fn()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn()
+        sync()
+        out[f"{key}_ms"] = (time.perf_counter() - t0) / 3 * 1e3
+    out["gather_bytes"] = dense.X.shape[0] * dense.width * dense.X.element_size()
+    out["hessian_bytes"] = H.numel() * H.element_size()
+    return out
+
+
+def _check_step(label: str, got, ref, inner: str = "float64") -> None:
+    """A sharded result against the single device's."""
+    got, ref = np.asarray(got), np.asarray(ref)
+    if not np.all(np.isfinite(got)):
+        raise AssertionError(f"{label}: non-finite values")
+    if inner == "float64":
+        # np.testing.assert_allclose's test: |diff| <= atol + rtol |ref|
+        excess = np.abs(got - ref) - MULTI_STEP_TOL["rtol"] * np.abs(ref)
+        _check(f"{label}: max |diff| {float(np.abs(got - ref).max()):.3e}; its excess over "
+               f"rtol 1e-8", max(float(excess.max()), 0.0), MULTI_STEP_TOL["atol"])
+    else:
+        _check(f"{label} relerr", _relerr(got, ref), MULTI_F32_TOL)
+
+
+def phase_multichip(card: str, block, n: int = N, levels: int = MIX_LEVELS, device=None,
+                    world: int = MULTI_WORLD, mp: int = MULTI_MP,
+                    two_level: tuple = MULTI_2LEVEL, sandwich_shape: tuple = MULTI_SANDWICH,
+                    seg_w: int = MULTI_SEG_W, mixed_shape: tuple = MULTI_MIXED,
+                    one_rank_backend: str = "nccl", ranks_backend: str = "gloo") -> dict:
+    """Phase 10: the multi-device path.  ``device=None`` is the card (10a on
+    NCCL, 10b's ranks on gloo, all on card 0); ``device="cpu"`` with
+    ``one_rank_backend="gloo"`` runs it on the CPU.  With
+    ``ranks_backend="nccl"`` 10b's ranks take a card each
+    (``tools/multichip_cards.py``).
+
+    The steps take the dryrun's 6 CG iterations (``MULTI_N_CG``).
+
+    Returns ``{"launches": [10a's counts, rank 0's counts]}``."""
+    import tempfile
+
+    import torch.distributed as dist
+    from tabmat_torch.glm import fit_glm, irls_step
+    from tabmat_torch.ops import dense_ops
+    from tabmat_torch.ops.segments import build_plan
+    from tabmat_torch.parallel import launch
+    from tabmat_torch.parallel.design import DeviceDesign
+    from tabmat_torch.parallel.distributed import FIELDS, MixedDesign, mixed_irls_step
+    from tabmat_torch.parallel.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    on_card = device is None or torch.device(device).type == "cuda"
+    dev = torch.device("cuda", 0) if device is None else torch.device(device)
+    kd, fit_steps, n_cg = MIX_KD, MULTI_FIT_STEPS, MULTI_N_CG
+    inputs = multichip_inputs(block, n, kd, levels, sandwich_shape, seg_w, mixed_shape)
+    print(f"[10] the multi-device path ({card}): the sparse path's {n}x({kd} + "
+          f"{block.shape[1]} sparse + {levels} + {levels}) design; host inputs "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    # 10a: one rank, the real GPU backend; a one-rank all-reduce is a copy,
+    # so the sharded results are the single device's bit for bit
+    whole = DeviceDesign.from_matrix(sparse_path_split(inputs, dev))
+    y = inputs["y"].to(dev)
+    w = torch.ones_like(y)
+    b0 = torch.zeros(whole.shape[1], dtype=torch.float64, device=dev)
+    single = {inner: irls_step(whole, y, w, b0, family="poisson", n_cg=n_cg,
+                               inner_precision=inner) for inner in ("float64", "float32")}
+    store = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    if on_card:
+        torch.cuda.set_device(dev)
+    dist.init_process_group(one_rank_backend, init_method=f"file://{store}/store", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh(1, device=device)
+        source = DeviceDesign.from_matrix(sparse_path_split(inputs, "cpu"))
+        reset_launch_counts()
+        sharded = source.shard(mesh)
+        steps = {inner: irls_step(sharded, y, w, b0, family="poisson", n_cg=n_cg,
+                                  inner_precision=inner) for inner in ("float64", "float32")}
+        fits = {inner: fit_glm(sharded, y, family="poisson", max_iter=fit_steps, tol=0.0,
+                               n_cg=n_cg, inner_precision=inner)[0]
+                for inner in ("float64", "float32")}
+        sync()
+        counts_a = launch_counts()
+        print(f"  [10a] one {dist.get_backend()} rank: kernel launches {counts_a}", flush=True)
+        for inner in ("float64", "float32"):
+            ref_fit = fit_glm(whole, y, family="poisson", max_iter=fit_steps, tol=0.0, n_cg=n_cg,
+                              inner_precision=inner)[0]
+            for label, got, ref in ((f"irls_step {inner}", steps[inner], single[inner]),
+                                    (f"{fit_steps} fit_glm steps {inner}", fits[inner], ref_fit)):
+                same = torch.equal(got, ref)
+                print(f"  [10a] sharded {label} bit for bit the single device's: {same}",
+                      flush=True)
+                if not same:
+                    raise AssertionError(f"10a: the one-rank {label} differs from the single "
+                                         f"device's by {float((got - ref).abs().max())}")
+        if on_card:
+            for inner in ("float64", "float32"):
+                ms = {label: _time_ms(lambda d=d: irls_step(d, y, w, b0, family="poisson",
+                                                            n_cg=n_cg, inner_precision=inner),
+                                      reps=5, warmup=1, hold=False)
+                      for label, d in (("sharded", sharded), ("single device", whole))}
+                print(f"  [10a] irls_step inner={inner} {whole.shape[0]}x{whole.shape[1]}: "
+                      f"one-rank sharded {ms['sharded']:.4f} ms, single device "
+                      f"{ms['single device']:.4f} ms ({card})", flush=True)
+    finally:
+        dist.destroy_process_group()
+    del sharded, source
+
+    # 10b: a world of ranks, each on its rows of the card
+    t0 = time.perf_counter()
+    rank_device = None if device is None else str(device)
+    ranks = launch.run(multichip_rank, world, ranks_backend, rank_device, inputs, two_level, mp,
+                       timeout=600)
+    staged = on_card and ranks_backend == "gloo"
+    kind = f"{ranks_backend} ranks" + (" sharing the card" if staged else "")
+    print(f"  [10b] {world} {kind} (dp={world // mp} x mp={mp}; two-level "
+          f"dcn x dp x mp = {two_level}) ran in {time.perf_counter() - t0:.1f} s; rows a rank "
+          f"{[r['n_local'] for r in ranks]}; setup s {[round(r['setup_s'], 2) for r in ranks]}; "
+          f"path s {[round(r['path_s'], 2) for r in ranks]}", flush=True)
+    for r in ranks:
+        missing = [name for name in MULTI_KERNELS if r["launches"][name] == 0]
+        if on_card and missing:
+            raise AssertionError(f"10b: rank {r['rank']} did not launch {missing}")
+        for key in ("step_float64", "step_float32", "step_two_level", "sandwich", "tmv",
+                    "segment_sum", "mixed_step"):
+            if not np.array_equal(r[key], ranks[0][key]):
+                raise AssertionError(f"10b: rank {r['rank']}'s {key} differs from rank 0's")
+    r0 = ranks[0]
+    print(f"  [10b] rank 0's kernel launches {r0['launches']}; every rank launched "
+          f"{list(MULTI_KERNELS) if on_card else '(CPU: the plain versions)'}", flush=True)
+    note = (" host-staged (a gloo all-reduce of a card's tensor goes through the host: no "
+            "speed figure)" if staged else "")
+    print(f"  [10b] f64 step on {world} {kind}, median of 5, ms a rank{note}: "
+          f"{[round(r['step_ms'], 1) for r in ranks]}; ranks on {sorted({r['device'] for r in ranks})} "
+          f"({card})", flush=True)
+    print(f"  [10b] collectives alone{', host-staged' if staged else ''}, ms a rank: "
+          f"the dense columns' gather "
+          f"within mp ({r0['gather_bytes']} bytes a rank) "
+          f"{[round(r['gather_ms'], 2) for r in ranks]}; the Hessian's all-reduce over dp "
+          f"({r0['hessian_bytes']} bytes) {[round(r['hessian_all_reduce_ms'], 2) for r in ranks]}"
+          f" ({card})", flush=True)
+    for inner in ("float64", "float32"):
+        _check_step(f"10b user path irls_step {inner} vs single device", r0[f"step_{inner}"],
+                    single[inner].cpu(), inner)
+    _check_step("10b two-level mesh irls_step float64 vs single device", r0["step_two_level"],
+                single["float64"].cpu())
+    X, d, v = (inputs[key].to(dev) for key in ("X", "d", "v"))
+    _check_step("10b sharded_sandwich vs single device", r0["sandwich"],
+                dense_ops.sandwich(X, d).cpu())
+    X_np, d_np = inputs["X"].numpy(), inputs["d"].numpy()
+    relerr = _relerr(r0["sandwich"], (X_np * d_np[:, None]).T @ X_np)
+    print(f"  [10b] sharded_sandwich f64 relerr vs numpy at {X_np.shape[0]}x{X_np.shape[1]} "
+          f"over {world // mp} row shards: {relerr:.3e} (limit {F64_TOL:.0e})", flush=True)
+    _check("10b sharded_sandwich relerr vs numpy", relerr, F64_TOL)
+    _check_step("10b sharded_transpose_matvec vs single device", r0["tmv"], (X.T @ v).cpu())
+    plan = build_plan(inputs["seg_codes"].numpy(), seg_w, dev)
+    _check_step(f"10b sharded_segment_sum W={seg_w} vs single device", r0["segment_sum"],
+                plan.sum(v).cpu())
+    del X, d, v, plan
+    dz = MixedDesign(**{name: getattr(inputs["mixed"], name).to(dev) for name in FIELDS})
+    ym = inputs["mixed_y"].to(dev)
+    k = r0["mixed_step"].shape[0]
+    ref = mixed_irls_step(dz, ym, torch.ones_like(ym),
+                          torch.zeros(k, dtype=torch.float64, device=dev), n_cg=n_cg)
+    _check_step(f"10b mixed_irls_step {tuple(mixed_shape)} vs single device", r0["mixed_step"],
+                ref.cpu())
+    print(f"  phase 10 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"launches": [counts_a, r0["launches"]]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA card",
@@ -1727,11 +2062,19 @@ def main() -> int:
 
     times = phase_times(device, N, K, card, mixed, sparse, cases, wide, frames)
     # phase 9 reads the card's memory: free the earlier phases' tensors first
-    del mixed, sparse, cases, wide, frames, designs, block
+    del mixed, sparse, cases, wide, frames, designs
     gc.collect()
     torch.cuda.empty_cache()
     cli = phase_bench_cli(card=card)
     main_launches.extend(cli["launches"].values())
+    gc.collect()
+    torch.cuda.empty_cache()
+    multi = phase_multichip(card, block)
+    for counts in multi["launches"]:
+        tiled = [name for name in ("sandwich<double>", "sandwich<float>") if counts[name]]
+        if tiled:
+            raise AssertionError(f"the multi-device path launched {tiled}, which no route names")
+    main_launches.extend(multi["launches"])
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         bound_ms, bound_by = times[name]["bound"]

@@ -8,8 +8,9 @@ categories, ``drop_first``, missing method and names, a ``SplitMatrix``
 through its blocks and their column indices, a ``StandardizedMatrix``
 through ``mat``, ``shift`` and ``mult``, a fitted
 ``GeneralizedLinearRegressor`` through its parameters,
-``coef_``/``intercept_``/``n_iter_`` and the formula spec it kept, and an
-array (a beta, say) becomes a tensor.  A matrix built from a formula keeps
+``coef_``/``intercept_``/``n_iter_`` and the formula spec it kept, a
+``parallel.MixedDesign`` through its arrays, and an array (a beta, say)
+becomes a tensor.  A matrix built from a formula keeps
 its ``model_spec``: the port's ``FormulaModelSpec`` with the same terms,
 factor states (numpy and Python values, and the contrast codings) and
 options, and the device, so that ``get_model_matrix`` re-encodes a new frame
@@ -28,6 +29,8 @@ from .models.dense import DenseMatrix
 from .models.sparse import SparseMatrix
 from .models.split import SplitMatrix
 from .models.standardized import StandardizedMatrix
+from .parallel.distributed import FIELDS as MIXED_FIELDS
+from .parallel.distributed import MixedDesign
 from .utils.arrays import to_tensor
 
 _ESTIMATOR_PARAMS = (
@@ -127,6 +130,9 @@ def _convert(obj, device):
         if getattr(obj, "_formula_spec", None) is not None:
             est._formula_spec = _model_spec(obj._formula_spec, resolve_device(device))
         return est
+    if kind == "MixedDesign":
+        return MixedDesign(**{name: to_tensor(np.asarray(getattr(obj, name)), device=device)
+                              for name in MIXED_FIELDS})
     if hasattr(obj, "__array__"):
         return to_tensor(np.asarray(obj), device=device)
     raise NotImplementedError(f"converting a tabmat_tpu {kind} is not supported")

@@ -14,6 +14,13 @@ Functional core:
 On a :class:`~tabmat_torch.parallel.design.DeviceDesign` the Newton step
 builds one explicit Hessian through the sandwich kernel, in float32 by
 default (``inner_precision='float32'``) or float64.
+
+The three run unchanged on a row-sharded design
+(``DeviceDesign.shard``), as the reference's shard over a row mesh: y, the
+weights and the offset are the rank's rows, beta is whole on every rank.
+The design's transpose-matvec, sandwich and float32 scale bound are
+all-reduced over the ranks, so the CG solve, the step and the convergence
+test are the same on every rank.
 """
 
 from typing import Callable
@@ -331,7 +338,9 @@ def fit_glm(
     beta = torch.zeros(X.shape[1], dtype=X.dtype, device=X.device)
     y = _as_float(y, beta)
     if sample_weight is None:
-        sample_weight = torch.ones(X.shape[0], dtype=X.dtype, device=X.device)
+        # a sharded design's rows on this rank
+        n_rows = X.n_local if isinstance(X, DeviceDesign) else X.shape[0]
+        sample_weight = torch.ones(n_rows, dtype=X.dtype, device=X.device)
     else:
         sample_weight = _as_float(sample_weight, beta)
 

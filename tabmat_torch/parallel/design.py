@@ -36,6 +36,8 @@ from ..models.categorical import CategoricalMatrix
 from ..models.sparse import SparseMatrix
 from ..ops import dense_ops, gather_kernel, sandwich_kernel, segments, sparse_ops
 from ..utils import tensor_bytes
+from .mesh import (all_reduce, axes_of, gather_columns, mesh_device, row_range, shard_index,
+                   split_range)
 
 # The explicit sandwich needs a full K1·K2-segment plan for every pair of
 # categoricals: the product of their widths must be at most this (the
@@ -64,11 +66,46 @@ class _DenseBlock:
     def float_tensors(self) -> list:
         return [self.X]
 
+    def full(self) -> torch.Tensor:
+        """All the block's columns of the rows held here."""
+        return self.X
+
     def matvec(self, v):
         return dense_ops.matvec(self.X, v)
 
     def tmv(self, r):
         return dense_ops.transpose_matvec(self.X, r)
+
+
+class _ColumnShardedDenseBlock(_DenseBlock):
+    """The columns ``cols[0]:cols[1]`` of a dense block's rows, the other
+    columns on the other ranks of the mesh axis ``axis``.
+
+    ``width`` is the block's full width.  matvec and tmv give the whole
+    block's result for these rows (one all-reduce over ``axis`` each);
+    :meth:`full` gathers the columns for the sandwich's dense cells.
+    """
+
+    def __init__(self, X: torch.Tensor, positions: np.ndarray, cols: tuple, mesh, axis):
+        super().__init__(X, positions)
+        self.width = len(positions)
+        self.cols, self.mesh, self.axis = cols, mesh, axis
+
+    def astype_float(self, dtype) -> "_ColumnShardedDenseBlock":
+        return _ColumnShardedDenseBlock(self.X.to(dtype), self.positions, self.cols, self.mesh,
+                                        self.axis)
+
+    def full(self) -> torch.Tensor:
+        return gather_columns(self.X, self.cols, self.width, self.mesh, self.axis)
+
+    def matvec(self, v):
+        return all_reduce(dense_ops.matvec(self.X, v[self.cols[0]:self.cols[1]]), self.mesh,
+                          self.axis)
+
+    def tmv(self, r):
+        out = r.new_zeros(self.width)
+        out[self.cols[0]:self.cols[1]] = dense_ops.transpose_matvec(self.X, r)
+        return all_reduce(out, self.mesh, self.axis)
 
 
 class _CatBlock:
@@ -90,6 +127,7 @@ class _CatBlock:
         self.positions = positions
         self.n = cats[0].shape[0]
         self.device = device = cats[0].device
+        self.cats = list(cats)
         codes, off = [], 0
         for m in cats:
             eff = m._eff_codes_np
@@ -107,6 +145,15 @@ class _CatBlock:
             for a in range(len(cats)):
                 for b in range(a + 1, len(cats)):
                     self.cross[(a, b)], _ = cats[a]._cross_plan(cats[b])
+
+    def rows(self, lo: int, hi: int, device) -> "_CatBlock":
+        """The block of rows ``lo:hi`` on ``device``, with plans of its own."""
+        return _CatBlock([
+            CategoricalMatrix(np.maximum(m._eff_codes_np[lo:hi], -1),
+                              categories=np.arange(m.shape[1]), cat_missing_method="zero",
+                              device=device)
+            for m in self.cats
+        ], self.positions)
 
     @property
     def has_cross_plans(self) -> bool:
@@ -161,6 +208,11 @@ class _SparseBlock:
         self._csc_host = mat.array_csc
         self.absmax = float(np.abs(mat.data).max()) if mat.data.size else 0.0
 
+    def rows(self, lo: int, hi: int, device) -> "_SparseBlock":
+        """The block of rows ``lo:hi`` on ``device``, with layouts and plans of
+        its own (the pair plan charged to the ledger)."""
+        return _SparseBlock(SparseMatrix(self._csc_host[lo:hi], device=device), self.positions)
+
     def attach_cat_plan(self, cat: "_CatBlock") -> None:
         """Build the (code, column) plan over the stacked codes of ``cat``:
         one launch then gives every sparse×cat cell."""
@@ -211,6 +263,7 @@ class DeviceDesign:
                  shift=None, mult=None):
         self.blocks = blocks
         self.shape = (n_rows, n_cols)
+        self.n_local = n_rows  # the rows held here: all of them, or a rank's slab
         self.dtype = dtype
         self.shift = shift  # standardization: x -> mult*x + shift (per col)
         self.mult = mult
@@ -271,6 +324,23 @@ class DeviceDesign:
                     b.attach_cat_plan(cat)
         return cls(blocks, n, k, dtype)
 
+    def shard(self, mesh, rows="dp", dense_cols=None) -> "ShardedDesign":
+        """This rank's row slab of the design on the mesh's device — the user
+        multichip path.  Every rank of the mesh calls it.
+
+        Rows shard over the mesh axis ``rows`` (or an axis tuple, e.g.
+        ``("dcn", "dp")`` for a two-level mesh); with ``dense_cols`` (a mesh
+        axis) the rank keeps only its share of the dense columns too.  The
+        slab's blocks are rebuilt on the rank's device from its rows: the
+        dense rows, the sparse rows with their CSR, CSC and pair plan, the
+        codes with their own segment, cross and sparse × cat plans.  So the
+        design may live on the CPU, and no rank holds all of it on a card.
+
+        The result feeds ``glm.irls_step`` and ``fit_glm`` unchanged, with y
+        and the weights this rank's rows (``shard_rows``) and beta whole.
+        """
+        return ShardedDesign(self, mesh, rows, dense_cols)
+
     @property
     def device(self) -> torch.device:
         return self.blocks[0].device
@@ -305,7 +375,7 @@ class DeviceDesign:
             return None if x is None else x.to(dtype)
 
         blocks = [b if b.kind == "cat" else b.astype_float(dtype) for b in self.blocks]
-        d = object.__new__(DeviceDesign)
+        d = object.__new__(type(self))
         d.__dict__.update(self.__dict__)
         d.blocks, d.dtype, d.shift, d.mult = blocks, dtype, cast(self.shift), cast(self.mult)
         if cache_charge(tensor_bytes(t for b in blocks if b.kind != "cat"
@@ -365,15 +435,16 @@ class DeviceDesign:
         cell is computed once and mirrored, so the result is exactly
         symmetric where each diagonal cell is."""
         dense, sparse, cat = (self._block(kind) for kind in ("dense", "sparse", "cat"))
+        X = None if dense is None else dense.full()
         cells = {}
         if dense is not None:
-            cells["dense", "dense"] = dense_ops.sandwich(dense.X, w)
+            cells["dense", "dense"] = dense_ops.sandwich(X, w)
         if sparse is not None:
             cells["sparse", "sparse"] = sparse.diag(w)
             if dense is not None:
-                cells["sparse", "dense"] = sparse.cross_dense(dense.X, w)
+                cells["sparse", "dense"] = sparse.cross_dense(X, w)
         if cat is not None:
-            wX = None if dense is None else (dense.X * w[:, None]).contiguous()
+            wX = None if dense is None else (X * w[:, None]).contiguous()
             cells["cat", "dense"], cells["cat", "cat"] = cat.sandwich(w, wX)
             if sparse is not None:
                 cells["cat", "sparse"] = sparse.cross_cat(w, cat.width)
@@ -426,3 +497,80 @@ class _TransposedDesign:
 
     def __matmul__(self, r):
         return self._design.transpose_matvec(r)
+
+
+class ShardedDesign(DeviceDesign):
+    """A rank's row slab of a design on a mesh (:meth:`DeviceDesign.shard`).
+
+    ``shape`` is the whole design's (n, k) and ``n_local`` the rank's rows.
+    ``matvec`` gives the rank's rows of ``X @ v`` (the dense part all-reduced
+    over the ``dense_cols`` axis first, when the columns are sharded too);
+    ``transpose_matvec`` and ``sandwich`` take the rank's partial, the
+    standardization's ``shift · Σ r`` term included once, then one
+    all-reduce over the row axes, so every rank holds the whole result.
+    With ``dense_cols``, the slab's dense columns are gathered within the
+    ``dense_cols`` group before the sandwich's dense cells, and each rank of
+    the group computes the slab's whole sandwich: the group's ranks hold the
+    same rows, and the all-reduce runs over the row axes alone.
+
+    The ranks agree where they could differ: ``absmax_bound`` (the float32
+    Hessian's scale) is a MAX over the mesh, and ``supports_sandwich`` a MIN,
+    taken once here, since a cache budget may refuse a plan on one rank only.
+    """
+
+    def __init__(self, source: DeviceDesign, mesh, rows="dp", dense_cols=None):
+        if isinstance(source, ShardedDesign):
+            raise ValueError("the design is sharded already")
+        n, k = source.shape
+        lo, hi = row_range(n, mesh, rows)
+        device = mesh_device(mesh)
+        blocks = []
+        for b in source.blocks:
+            if b.kind == "dense":
+                X = b.X[lo:hi]
+                if dense_cols is None:
+                    blocks.append(_DenseBlock(X.to(device).contiguous(), b.positions))
+                else:
+                    cols = split_range(b.width, *shard_index(mesh, dense_cols))
+                    blocks.append(_ColumnShardedDenseBlock(
+                        X[:, cols[0]:cols[1]].to(device).contiguous(), b.positions, cols,
+                        mesh, dense_cols))
+            else:
+                blocks.append(b.rows(lo, hi, device))
+        cat = next((b for b in blocks if b.kind == "cat"), None)
+        if cat is not None:
+            for b in blocks:
+                if b.kind == "sparse":
+                    b.attach_cat_plan(cat)
+
+        def replicated(x):
+            return None if x is None else x.to(device)
+
+        super().__init__(blocks, hi - lo, k, source.dtype, replicated(source.shift),
+                         replicated(source.mult))
+        self.shape = (n, k)
+        self.mesh, self.row_axes, self.dense_cols = mesh, axes_of(rows), dense_cols
+        local = torch.tensor([float(DeviceDesign.supports_sandwich.fget(self))], device=device)
+        self._supports_sandwich = bool(
+            all_reduce(local, mesh, mesh.mesh_dim_names, "min").item())
+
+    @property
+    def supports_sandwich(self) -> bool:
+        """True when every rank's slab takes the explicit sandwich."""
+        return self._supports_sandwich
+
+    def transpose_matvec(self, r: torch.Tensor) -> torch.Tensor:
+        """``X.T @ r`` with ``r`` this rank's rows."""
+        return all_reduce(super().transpose_matvec(r), self.mesh, self.row_axes)
+
+    def sandwich(self, w: torch.Tensor) -> torch.Tensor:
+        """Explicit ``Xᵀ diag(w) X`` with ``w`` this rank's rows."""
+        return all_reduce(super().sandwich(w), self.mesh, self.row_axes)
+
+    def absmax_bound(self, w: torch.Tensor) -> torch.Tensor:
+        """The bound over every rank's rows and columns.  A NaN becomes inf
+        before the MAX, whatever the backend's MAX makes of NaN: either
+        leaves the float32 scale at 1."""
+        bound = super().absmax_bound(w).reshape(1)
+        bound = torch.where(torch.isnan(bound), torch.full_like(bound, float("inf")), bound)
+        return all_reduce(bound, self.mesh, self.mesh.mesh_dim_names, "max")[0]

@@ -489,3 +489,22 @@ def test_sparse_phases_on_cpu(monkeypatch):
     for kw in ({}, {"rows": rows}, {"cols": cols}, {"rows": rows, "cols": cols}):
         np.testing.assert_allclose(report["matrix"].sandwich(d, **kw), ref.sandwich(d, **kw),
                                    rtol=0, atol=1e-10)
+
+
+def test_multichip_phase_on_cpu(monkeypatch, capsys):
+    """Phase 10 at 4,000 rows on the CPU: 10a's one rank (gloo here, NCCL on
+    the card) bit for bit the single device's, 10b's eight gloo ranks
+    (dp = 4 x mp = 2, and the two-level mesh) against it."""
+    monkeypatch.syspath_prepend(str(ROOT))
+    import chip_smoke  # the ranks import their function by this name
+
+    n = 4000
+    report = chip_smoke.phase_multichip(
+        "cpu", chip_smoke.sparse_block(n), n=n, levels=30, device="cpu",
+        sandwich_shape=(n, 50), seg_w=100, mixed_shape=(n, 5, 100, 50),
+        one_rank_backend="gloo")
+    assert len(report["launches"]) == 2
+    assert all(v == 0 for counts in report["launches"] for v in counts.values())
+    out = capsys.readouterr().out
+    assert out.count("bit for bit the single device's: True") == 4
+    assert "FAIL" not in out
