@@ -43,9 +43,13 @@ Phases, each printed as it runs:
    CSC layouts of the reference's three sparse shapes (400,000 x 100,
    3,000,000 x 3 and 40,000 x 10,000, all at 1%), the pair plan and the
    stacked (code, column) plan of the sparse main path and its sparse x
-   dense cell (a per-row scale, 5 columns).  The sums are held within 1e-13
-   (f64) and 2e-5 (f32) of each segment's sum of |term|, and bit-identical
-   across two launches;
+   dense cell (a per-row scale, 5 columns), each case through both bound
+   widths (``spmv<T>`` on int32 bounds, ``spmv<T,int64>`` on the same
+   layout with int64 bounds, bit for bit the same), and a 400,000 x 100
+   ``SparseMatrix`` built with ``sparse_ops.INT32_MAX`` lowered below its
+   nonzeros (int64 CSR, CSC and pair plan; its ops against scipy).  The sums
+   are held within 1e-13 (f64) and 2e-5 (f32) of each segment's sum of
+   |term|, and bit-identical across two launches;
 4. the dense main path at 1,000,000 x 50 float64: DenseMatrix sandwich,
    matvec and transpose_matvec with and without active sets, standardize and
    the standardized sandwich, then ``fit_glm`` for gaussian and poisson in
@@ -96,8 +100,9 @@ Phases, each printed as it runs:
 8. times from CUDA events after warm-up: each kernel, its plain version and
    the one PyTorch call that computes the same function (``torch.einsum``
    for the sandwiches, cuSPARSE through ``torch.sparse_csr_tensor`` for the
-   sparse product, ``bincount`` and ``index_add_`` for the segment sum at
-   the mixed step's three shapes, ``table[codes]``, ``embedding_bag`` and
+   sparse product (``spmv<T,int64>`` on the 400,000 x 100 CSC tmv's layout
+   with int64 bounds, beside cuSPARSE with int64 indices), ``bincount``
+   and ``index_add_`` for the segment sum at the mixed step's three shapes, ``table[codes]``, ``embedding_bag`` and
    ``src[idx]`` for the gather, also at the window take's sorted indices),
    the sandwich kernels at 1M x 50, 1M x 5, 4M x 10,
    400k x 160, 400k x 200, 1M x 177, 1M x 129, 200k x 1000 (f32 and f64)
@@ -139,16 +144,27 @@ Phases, each printed as it runs:
    atol 1e-10; the float32 inner step 1e-4), every rank holding the same
    bits and launching the sparse path's kernels; the ranks' step times
    are printed as host-staged (gloo moves a card's tensor through the
-   host), no speed figure.
+   host), no speed figure;
+11. a sparse design past 2^31 - 1 nonzeros (``wide_nnz_matrix``: 2^26 x
+   1,000 float64, 28 to 38 nonzeros a row, 2,214,592,521 in all), built
+   without ``device=``: ``SparseMatrix`` with int64 bounds, its matvec and
+   transpose_matvec (each one ``spmv<double,int64>``) against scipy, its
+   sandwich (row panels through ``sandwich_mma<double>``) against the sum
+   of its two row halves' (int32 layouts, built after the whole matrix's
+   are freed), and a gaussian ``irls_step`` of ``DeviceDesign.from_matrix``
+   (the Hessian-vector path, ``n_cg=4``) in both inner precisions against
+   the same step in numpy/scipy; each host step's seconds, the layouts'
+   device bytes, ``spmv<double,int64>``'s times at this size beside
+   cuSPARSE with int64 indices.
 
 The launch counts are set to 0 just before each main-path phase (4 to 7b,
-each design of 9, 10a and each rank of 10b) and read just after; each path must launch its
+each design of 9, 10a, each rank of 10b, and 11) and read just after; each path must launch its
 kernels (the narrow and wide paths and the mixed and sparse paths' 5-column
 dense cell the width dispatch's kernels, the sparse main path both sparse
-products), and no path may launch ``sandwich<double>`` or
-``sandwich<float>``.  Any failed
+products, phase 11 ``spmv<T,int64>`` and no ``spmv<T>``), and no path may
+launch ``sandwich<double>`` or ``sandwich<float>``.  Any failed
 check raises, so the script exits 0 only when every check passed.  The last
-three lines are the ``kernels`` JSON object (seventeen instantiations),
+three lines are the ``kernels`` JSON object (nineteen instantiations),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 Without CUDA it exits non-zero and prints no result.
 """
@@ -297,12 +313,17 @@ KERNELS = {
     "segsum_slots<float>": ("tabmat_torch/csrc/segsum.cu", "tabmat_tpu/ops/pallas_segsum.py:97"),
     "spmv<double>": ("tabmat_torch/csrc/spmv.cu", "tabmat_tpu/ops/pallas_tmv_fused.py:179"),
     "spmv<float>": ("tabmat_torch/csrc/spmv.cu", "tabmat_tpu/ops/pallas_tmv_fused.py:179"),
+    "spmv<double,int64>": ("tabmat_torch/csrc/spmv.cu",
+                           "tabmat_tpu/ops/pallas_tmv_fused.py:179"),
+    "spmv<float,int64>": ("tabmat_torch/csrc/spmv.cu", "tabmat_tpu/ops/pallas_tmv_fused.py:179"),
 }
 DENSE_KERNELS = ("sandwich_mma_tri<double>", "sandwich_tri<float>", "column_absmax")
 NARROW_KERNELS = ("sandwich_narrow<double>", "sandwich_narrow<float>", "column_absmax")
 WIDE_KERNELS = ("sandwich_mma<double>", "sandwich_tri<float>", "column_absmax")
 F32_WIDE_KERNELS = ("sandwich_mma<double>", "sandwich_wide<float>", "column_absmax")
 SPARSE_KERNELS = ("spmv<double>", "spmv<float>")
+# the same on layouts of more than 2^31 - 1 elements (int64 bounds)
+WIDE_SPARSE_KERNELS = ("spmv<double,int64>", "spmv<float,int64>")
 # the segment sum's two routes: the stacked plan's tmv, diagonal and cat x
 # dense cells take the tiles route, the 10^6-cell cat x cat plan the slots
 SEGSUM_KERNELS = ("segsum<double>", "segsum<float>", "segsum_slots<double>",
@@ -696,34 +717,98 @@ def spmv_cases(device, designs: dict, block, levels: int = MIX_LEVELS, kd: int =
     return cases
 
 
-def phase_spmv_kernels(device, cases) -> dict:
-    """The sparse segment product against its plain version; returns
-    max|kernel - plain| by instantiation over all cases."""
-    from tabmat_torch.ops import spmv_kernel as sk
+def spmv_name(dtype, bounds_dtype) -> str:
+    """The ``spmv`` instantiation for values of ``dtype`` and bounds of
+    ``bounds_dtype``."""
+    base = "double" if dtype == torch.float64 else "float"
+    return f"spmv<{base}>" if bounds_dtype == torch.int32 else f"spmv<{base},int64>"
 
-    print(f"[3] sparse segment product vs plain on {device}", flush=True)
+
+def phase_spmv_kernels(device, cases) -> dict:
+    """The sparse segment product against its plain version, each case
+    through the int32-bounds and the int64-bounds instantiation (the plan's
+    bounds and a copy of them in the other width), which must agree bit for
+    bit; returns max|kernel - plain| by instantiation over all cases."""
+    from tabmat_torch.ops import spmv_kernel as sk
+    from tabmat_torch.ops.segments import SegmentPlan
+
+    print(f"[3] sparse segment product vs plain on {device}, int32 and int64 bounds",
+          flush=True)
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
-    max_abs = {name: 0.0 for name in SPARSE_KERNELS}
+    max_abs = {name: 0.0 for name in SPARSE_KERNELS + WIDE_SPARSE_KERNELS}
     for label, plan, a, values, scale in cases:
+        other = torch.int64 if plan.bounds.dtype == torch.int32 else torch.int32
+        twins = {plan.bounds.dtype: plan,
+                 other: SegmentPlan(plan.perm, plan.bounds.to(other), plan.n_rows)}
         for dtype, tol in ((torch.float64, F64_TOL), (torch.float32, F32_TOL)):
-            name = f"spmv<{'double' if dtype == torch.float64 else 'float'}>"
             A, V = a.to(dtype), values.to(dtype)
             S = None if scale is None else scale.to(dtype)
-            before = sk.launches[name]
-            first, second = sk.spmv(V, plan, A, S), sk.spmv(V, plan, A, S)
-            if device.type == "cuda" and sk.launches[name] != before + 2:
-                raise AssertionError(f"{name} {label} launched no kernel")
-            want = sk.spmv_plain(V, plan.perm, plan.bounds, A, S)
-            mag = sk.spmv_plain(V.abs().double(), plan.perm, plan.bounds, A.abs().double(),
-                                None if S is None else S.abs().double())
-            sync()
-            if not torch.equal(first, second):
-                raise AssertionError(f"{name} {label}: two launches differ")
-            diff = (first.double() - want.double()).abs()
-            max_abs[name] = max(max_abs[name], float(diff.max()))
-            rel = float((diff / mag.clamp_min(torch.finfo(torch.float64).tiny)).max())
-            _check(f"{name} {label} max|diff|/sum|term| (repeats exactly)", rel, tol)
+            got = {}
+            for width, p in sorted(twins.items(), key=lambda item: item[0].itemsize):
+                name = spmv_name(dtype, width)
+                before = sk.launches[name]
+                first, second = sk.spmv(V, p, A, S), sk.spmv(V, p, A, S)
+                if device.type == "cuda" and sk.launches[name] != before + 2:
+                    raise AssertionError(f"{name} {label} launched no kernel")
+                want = sk.spmv_plain(V, p.perm, p.bounds, A, S)
+                mag = sk.spmv_plain(V.abs().double(), p.perm, p.bounds, A.abs().double(),
+                                    None if S is None else S.abs().double())
+                sync()
+                if not torch.equal(first, second):
+                    raise AssertionError(f"{name} {label}: two launches differ")
+                diff = (first.double() - want.double()).abs()
+                max_abs[name] = max(max_abs[name], float(diff.max()))
+                rel = float((diff / mag.clamp_min(torch.finfo(torch.float64).tiny)).max())
+                _check(f"{name} {label} max|diff|/sum|term| (repeats exactly)", rel, tol)
+                got[width] = first
+            if not torch.equal(got[torch.int32], got[torch.int64]):
+                raise AssertionError(f"{label} {dtype}: the int64 bounds' result is not bit for "
+                                     "bit the int32 bounds' one")
     return max_abs
+
+
+def phase_forced_int64(device, X, seed: int = 17) -> list:
+    """A SparseMatrix of ``X`` built with ``sparse_ops.INT32_MAX`` set below
+    its nonzeros for the length of this check: its CSR, CSC and pair plans
+    take int64 bounds, and its matvec, transpose-matvec and sandwich, through
+    ``spmv<double,int64>``, match scipy.  Returns its three layouts as spmv
+    cases for :func:`phase_spmv_kernels`."""
+    import tabmat_torch as tt
+    from scipy import sparse as sps
+    from tabmat_torch.ops import sparse_ops
+    from tabmat_torch.ops import spmv_kernel as sk
+
+    n, k = X.shape
+    limit = sparse_ops.INT32_MAX
+    sparse_ops.INT32_MAX = X.nnz // 2
+    try:
+        print(f"[3] a {n}x{k} SparseMatrix ({X.nnz} nonzeros) with INT32_MAX lowered to "
+              f"{sparse_ops.INT32_MAX}", flush=True)
+        m = tt.SparseMatrix(X, device=device)
+        layouts = {"CSR": m._csr_parts(), "CSC": m._csc_parts(), "pair plan": m._pair_parts()}
+        for what, (_, plan) in layouts.items():
+            if plan.bounds.dtype != torch.int64 or plan.perm.dtype != torch.int32:
+                raise AssertionError(f"the forced {what} has bounds {plan.bounds.dtype} and "
+                                     f"indices {plan.perm.dtype}")
+        rng = np.random.default_rng(seed)
+        v, r, d = rng.standard_normal(k), rng.standard_normal(n), rng.random(n)
+        before = dict(sk.launches)
+        Xr = X.tocsr()
+        _check("forced int64 matvec relerr vs scipy", _relerr(m.matvec(v), Xr @ v), OP_TOL)
+        _check("forced int64 transpose_matvec relerr vs scipy",
+               _relerr(m.transpose_matvec(r), Xr.T @ r), OP_TOL)
+        H_ref = (X.T @ sps.csc_matrix(X.multiply(d[:, None]))).toarray()
+        _check("forced int64 sandwich relerr vs scipy", _relerr(m.sandwich(d), H_ref), F64_TOL)
+        launched = {name: sk.launches[name] - before[name] for name in before}
+        if device.type == "cuda" and (launched["spmv<double,int64>"] != 3
+                                      or launched["spmv<double>"] != 0):
+            raise AssertionError(f"the forced matrix launched {launched}")
+    finally:
+        sparse_ops.INT32_MAX = limit
+    operands = {"CSR": v, "CSC": r, "pair plan": d}
+    return [(f"forced int64 {n}x{k} {what}", plan, a,
+             torch.as_tensor(operands[what], device=device), None)
+            for what, (a, plan) in layouts.items()]
 
 
 def phase_sparse_standalone(designs: dict, device=None, seed: int = 2) -> None:
@@ -1255,12 +1340,14 @@ def _compare(label: str, card: str, kernel, plain, library=None, reps: int = 20,
 
 def spmv_bound(plan, a, values, scale):
     """``(bound_ms, bound_by)`` of one sparse product: ``a``, the indices,
-    the bounds, ``values`` and ``scale`` read once, the output written once;
-    a multiply-add per element and column (and the scale's multiply)."""
+    the bounds (4 or 8 bytes each), ``values`` and ``scale`` read once, the
+    output written once; a multiply-add per element and column (and the
+    scale's multiply)."""
     size = values.element_size()
     m = 1 if values.ndim == 1 else values.shape[1]
     E = plan.perm.numel()
-    n_bytes = (E * (size + 4) + plan.bounds.numel() * 4 + values.numel() * size
+    n_bytes = (E * (size + plan.perm.element_size())
+               + plan.bounds.numel() * plan.bounds.element_size() + values.numel() * size
                + (0 if scale is None else scale.numel() * size) + plan.num_segments * m * size)
     return bound(n_bytes, 2 * E * m + (0 if scale is None else E))
 
@@ -1322,6 +1409,7 @@ def phase_times(device, n: int, k: int, card: str, mixed: dict, sparse: dict,
     from tabmat_torch.ops import segsum_kernel as ssk
     from tabmat_torch.ops import sparse_ops
     from tabmat_torch.ops import spmv_kernel as spk
+    from tabmat_torch.ops.segments import SegmentPlan
     from tabmat_torch.parallel.design import DeviceDesign
 
     print(f"[8] times on {card}", flush=True)
@@ -1466,6 +1554,19 @@ def phase_times(device, n: int, k: int, card: str, mixed: dict, sparse: dict,
             times[f"{name} {label}"] = t
             if label == ROW15_CASE:
                 times[name] = t
+                # spmv<T,int64> on the same layout with its bounds as int64,
+                # cuSPARSE with int64 indices beside it
+                wide = SegmentPlan(plan.perm, plan.bounds.long(), plan.n_rows)
+                csr64 = torch.sparse_csr_tensor(wide.bounds, wide.perm.long(), A,
+                                                size=(wide.num_segments, wide.n_rows))
+                t = _compare(f"{spmv_name(dtype, torch.int64)} {label}", card,
+                             lambda: spk.spmv(V, wide, A),
+                             lambda: spk.spmv_plain(V, wide.perm, wide.bounds, A),
+                             lambda: csr64 @ V)
+                t["bound"] = spmv_bound(wide, A, V, None)
+                print(f"    bound {t['bound'][0]:.6f} ms by {t['bound'][1]}")
+                times[spmv_name(dtype, torch.int64)] = t
+                del wide, csr64
             del A, V, S
 
     rng = np.random.default_rng(7)
@@ -1996,6 +2097,263 @@ def phase_multichip(card: str, block, n: int = N, levels: int = MIX_LEVELS, devi
     return {"launches": [counts_a, r0["launches"]]}
 
 
+# phase 11: a sparse design past 2^31 - 1 nonzeros, the size of a GLM with
+# hashed or one-hot sparse features (67M rows at 33 nonzeros a row): 2^26
+# rows x 1,000 columns in float64, 28 to 38 nonzeros a row (mean 33), so
+# that segments cross the merge tiles' edges at varied offsets.  Row r's
+# j-th column is 26 j + (r mod 26), below 1,000 for every j < 38, so the
+# CSC is written column by column with no sort.  2^26 rows give
+# 2,214,592,521 nonzeros (wide_nnz_lengths): the elements of the last ~2M
+# rows lie past the int32 range.
+WIDE_NNZ_N, WIDE_NNZ_K = 1 << 26, 1000
+WIDE_NNZ_LENGTHS = (28, 38)
+WIDE_NNZ_STRIDE = 26
+WIDE_NNZ_N_CG = 4
+# the f64 and f32 Hessian-vector steps, and the sandwich's row panels
+WIDE_NNZ_KERNELS = WIDE_SPARSE_KERNELS + ("sandwich_mma<double>",)
+WIDE_NNZ_REPS = 5
+
+
+def wide_nnz_lengths(n: int, lengths=WIDE_NNZ_LENGTHS, seed: int = 11) -> np.ndarray:
+    """Phase 11's row lengths: ``hi - (π(r) mod (hi - lo + 1))`` for a
+    permutation π of the rows made from ``seed``, so each length from ``lo``
+    to ``hi`` falls on n / 11 rows (at 2^26 rows: 33 n + 9 nonzeros)."""
+    lo, hi = lengths
+    return (hi - np.random.default_rng(seed).permutation(n) % (hi - lo + 1)).astype(np.int8)
+
+
+def wide_nnz_matrix(n: int, k: int = WIDE_NNZ_K, lengths=WIDE_NNZ_LENGTHS,
+                    stride: int = WIDE_NNZ_STRIDE, seed: int = 11, threads: int = 8):
+    """Phase 11's scipy CSC matrix, made with numpy from ``seed``: row r
+    holds ``wide_nnz_lengths`` nonzeros, its j-th in column
+    ``stride * j + r % stride``; standard normal values, filled by
+    ``threads`` generators at once."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from scipy import sparse as sps
+
+    lo, hi = lengths
+    if stride * hi > k:
+        raise ValueError(f"{stride} x {hi} columns do not fit in {k}")
+    L = wide_nnz_lengths(n, lengths, seed)
+    data_seqs = np.random.SeedSequence(seed).spawn(threads)
+    # column stride * j + s holds the rows r = s (mod stride) with L[r] > j
+    counts = np.zeros(k, dtype=np.int64)
+    for s in range(stride):
+        at_least = np.bincount(L[s::stride], minlength=hi + 1)[::-1].cumsum()[::-1]
+        counts[s : stride * hi : stride] = at_least[1 : hi + 1]
+    indptr = np.zeros(k + 1, dtype=np.int64)
+    np.cumsum(counts, out=indptr[1:])
+    indices = np.empty(indptr[-1], dtype=np.int64)
+    for s in range(stride):
+        rows, Ls = np.arange(s, n, stride, dtype=np.int64), L[s::stride]
+        for j in range(hi):
+            c = s + stride * j
+            indices[indptr[c] : indptr[c + 1]] = rows if j < lo else rows[Ls > j]
+    data = np.empty(len(indices))
+    cuts = np.linspace(0, len(data), threads + 1).astype(np.int64)
+
+    def fill(i):
+        np.random.default_rng(data_seqs[i]).standard_normal(out=data[cuts[i] : cuts[i + 1]])
+
+    with ThreadPoolExecutor(threads) as pool:
+        list(pool.map(fill, range(threads)))
+    return sps.csc_matrix((data, indices, indptr), shape=(n, k))
+
+
+def _host_gaussian_step(Xr, y, sw, beta, n_cg: int):
+    """The port's gaussian ``irls_step`` on a design without the explicit
+    sandwich, in numpy with scipy's products: the gradient and a fixed-
+    iteration CG on ``H p = Xᵀ(sw ⊙ X p)``, guarded as ``glm._cg_solve``.
+    ``Xr`` is a scipy CSR matrix."""
+    tiny = np.finfo(np.float64).tiny
+    Xt = Xr.T
+    grad = Xt @ (sw * (y - Xr @ beta))
+    x, res, p, rs = np.zeros_like(grad), grad, grad, grad @ grad
+    for _ in range(n_cg):
+        Ap = Xt @ (sw * (Xr @ p))
+        denom = p @ Ap
+        alpha = rs / denom if denom > tiny else 0.0
+        x = x + alpha * p
+        res = res - alpha * Ap
+        rs_new = res @ res
+        p = res + (rs_new / rs if rs > tiny else 0.0) * p
+        rs = rs_new
+    return beta + x
+
+
+class _Steps:
+    """Prints each step's seconds on the host clock."""
+
+    def __init__(self):
+        self.last = time.perf_counter()
+
+    def __call__(self, what: str) -> None:
+        now = time.perf_counter()
+        print(f"  {what}: {now - self.last:.2f} s", flush=True)
+        self.last = now
+
+
+def _launched(before: dict) -> dict:
+    return {name: count - before[name] for name, count in launch_counts().items()
+            if count != before[name]}
+
+
+def phase_wide_nnz(n: int = WIDE_NNZ_N, device=None, seed: int = 12,
+                   n_cg: int = WIDE_NNZ_N_CG) -> dict:
+    """Phase 11: :func:`wide_nnz_matrix` through ``SparseMatrix`` and
+    ``DeviceDesign`` with int64 bounds.  matvec and transpose-matvec against
+    scipy; the sandwich (row panels through ``sandwich_mma<double>``), held
+    against its two row halves in :func:`phase_wide_nnz_times`; a gaussian
+    ``irls_step`` (the Hessian-vector path) in both inner precisions against
+    :func:`_host_gaussian_step`.  ``device=None`` builds without ``device=``
+    (the card).  Returns what the times and the halves need."""
+    import tabmat_torch as tt
+    from tabmat_torch.glm import irls_step
+    from tabmat_torch.parallel.design import DeviceDesign
+
+    kw = {} if device is None else {"device": device}
+    print(f"[11] a sparse design past 2^31 - 1 nonzeros: {n}x{WIDE_NNZ_K} float64, "
+          f"device={'default' if device is None else device}", flush=True)
+    step = _Steps()
+    X = wide_nnz_matrix(n)
+    past = X.nnz - (2**31 - 1)
+    step(f"numpy made the CSC, {X.nnz} nonzeros ({past} past 2^31 - 1), indices "
+         f"{X.indices.dtype}")
+    if n == WIDE_NNZ_N and past <= 0:
+        raise AssertionError(f"phase 11's design has only {X.nnz} nonzeros")
+    m = tt.SparseMatrix(X, **kw)
+    step("SparseMatrix(csc)")
+    if device is None and m.device.type != "cuda":
+        raise AssertionError(f"a SparseMatrix built without device= landed on {m.device}")
+    on_card = m.device.type == "cuda"
+    Xr = m.array_csr
+    step("scipy's CSR twin (tocsr)")
+    rng = np.random.default_rng(seed)
+    v, r = rng.standard_normal(WIDE_NNZ_K), rng.standard_normal(n)
+    got = {}
+    for op, fn in (("matvec", lambda: m.matvec(v)), ("transpose_matvec",
+                                                      lambda: m.transpose_matvec(r))):
+        before = launch_counts()
+        got[op] = fn()
+        launched = _launched(before)
+        step(f"{op} (its layout's upload included), launches {launched}")
+        if on_card and launched != {"spmv<double,int64>": 1}:
+            raise AssertionError(f"{op} launched {launched}, not one spmv<double,int64>")
+    for what, (data, plan) in (("CSR", m._csr_parts()), ("CSC", m._csc_parts())):
+        print(f"  {what} layout: data {data.dtype} {data.nbytes} bytes, indices "
+              f"{plan.perm.dtype} {plan.perm.nbytes} bytes, bounds {plan.bounds.dtype} "
+              f"{plan.bounds.nbytes} bytes on {data.device}")
+        if plan.bounds.dtype != torch.int64 or plan.perm.dtype != torch.int32:
+            raise AssertionError(f"the {what} layout's bounds are {plan.bounds.dtype} and its "
+                                 f"indices {plan.perm.dtype}")
+    want = {"matvec": Xr @ v}
+    step("scipy matvec")
+    want["transpose_matvec"] = Xr.T @ r
+    step("scipy transpose-matvec")
+    for op in got:
+        _check(f"[11] {op} relerr vs scipy", _relerr(got[op], want[op]), OP_TOL)
+    del got, want
+
+    d = rng.random(n) - 0.25
+    d[::11] = 0.0
+    before = launch_counts()
+    S = m.sandwich(d)
+    launched = _launched(before)
+    step(f"sandwich by row panels, launches {launched}")
+    if on_card and (launched.get("sandwich_mma<double>", 0) == 0
+                    or any(name.startswith("spmv") for name in launched)):
+        raise AssertionError(f"the sandwich launched {launched}")
+
+    design = DeviceDesign.from_matrix(m)
+    step("DeviceDesign.from_matrix")
+    if design.supports_sandwich:
+        raise AssertionError("the design must take the Hessian-vector path")
+    dev = design.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    beta_true = torch.as_tensor(rng.standard_normal(WIDE_NNZ_K) * 0.1, device=dev)
+    y = design.matvec(beta_true) + 0.1 * torch.randn(n, dtype=torch.float64, device=dev,
+                                                     generator=gen)
+    sw = torch.rand(n, dtype=torch.float64, device=dev, generator=gen) + 0.5
+    b0 = torch.as_tensor(rng.standard_normal(WIDE_NNZ_K) * 0.01, device=dev)
+    betas, step_launches = {}, {}
+    for inner in ("float64", "float32"):
+        before = launch_counts()
+        beta = irls_step(design, y, sw, b0, family="gaussian", n_cg=n_cg,
+                         inner_precision=inner)
+        betas[inner] = beta.cpu().numpy()
+        step_launches[inner] = _launched(before)
+        step(f"irls_step gaussian n_cg={n_cg} inner={inner}, launches {step_launches[inner]}")
+        if not np.all(np.isfinite(betas[inner])):
+            raise AssertionError(f"the {inner} step gave {betas[inner][:8]}")
+    del design
+    ref = _host_gaussian_step(Xr, y.cpu().numpy(), sw.cpu().numpy(), b0.cpu().numpy(), n_cg)
+    step(f"the host replica ({2 + 2 * n_cg} scipy products)")
+    for inner, beta in betas.items():
+        _check(f"[11] irls_step inner={inner} beta relerr vs the host replica",
+               _relerr(beta, ref), BETA_TOL[inner])
+    return {"matrix": m, "csc": X, "csr": Xr, "S": S, "d": d, "step_launches": step_launches}
+
+
+def phase_wide_nnz_times(card: str, state: dict, reps: int = WIDE_NNZ_REPS) -> dict:
+    """Phase 11's times and its sandwich's halves, after its main path's
+    launches were read: ``spmv<double,int64>`` on the CSR matvec and the CSC
+    transpose-matvec with their bounds, then the sandwich against the sum
+    of the sandwiches of the two row halves, each a layout of fewer than
+    2^31 elements (int32 bounds), built after the whole matrix's layouts
+    and host CSC are freed.  cuSPARSE is not timed here: at this size it
+    raises (``tools/time_spmv.py --wide-nnz`` tries it).  Empties
+    ``state``."""
+    from scipy import sparse as sps
+    from tabmat_torch.models import sparse as port_sparse
+    from tabmat_torch.ops import dense_ops, sparse_ops
+    from tabmat_torch.ops import spmv_kernel as spk
+
+    m, Xr = state["matrix"], state["csr"]
+    n, k = m.shape
+    on_card = m.device.type == "cuda"
+    step = _Steps()
+    times = {}
+    gen = torch.Generator(device=m.device).manual_seed(3)
+    operands = {"CSR matvec": torch.randn(k, dtype=torch.float64, device=m.device,
+                                          generator=gen),
+                "CSC transpose-matvec": torch.randn(n, dtype=torch.float64, device=m.device,
+                                                    generator=gen)}
+    layouts = {"CSR matvec": m._csr_parts(), "CSC transpose-matvec": m._csc_parts()}
+    for label, (data, plan) in layouts.items():
+        x = operands[label]
+        bound_ms, bound_by = spmv_bound(plan, data, x, None)
+        ms = _time_ms(lambda: spk.spmv(x, plan, data), reps=reps) if on_card else None
+        times[label] = {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by}
+        print(f"  [11] spmv<double,int64> {label} {n}x{k}, {plan.perm.numel()} nonzeros: "
+              f"{ms} ms, bound {bound_ms:.6f} ms by {bound_by} ({card})", flush=True)
+    step("the full-size times")
+    device = m.device
+    del layouts, data, plan, x, operands
+    state["matrix"] = state["csc"] = m = None
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    d = torch.as_tensor(state["d"], device=device)
+    halves = torch.zeros((k, k), dtype=torch.float64, device=d.device)
+    for lo, hi in ((0, n // 2), (n // 2, n)):
+        a, b = int(Xr.indptr[lo]), int(Xr.indptr[hi])
+        half = sps.csr_matrix((Xr.data[a:b], Xr.indices[a:b], Xr.indptr[lo : hi + 1] - a),
+                              shape=(hi - lo, k))
+        data, plan = sparse_ops.compressed_layout(half, k, d.device)
+        if plan.bounds.dtype != torch.int32:
+            raise AssertionError(f"a half of {half.nnz} nonzeros took {plan.bounds.dtype} bounds")
+        for start, stop, panel in sparse_ops.csr_row_panels(
+                data, plan, half.indptr, k, port_sparse.DENSE_SANDWICH_MAX_ELEMENTS):
+            dense_ops.sandwich(panel, d[lo + start : lo + stop].contiguous(), out=halves)
+        del half, data, plan, panel
+    step("the two halves' sandwiches (int32 layouts)")
+    _check("[11] sandwich relerr vs the sum of its two row halves' sandwiches",
+           _relerr(state["S"], halves.cpu()), F64_TOL)
+    state.clear()
+    return times
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA card",
@@ -2010,7 +2368,9 @@ def main() -> int:
     designs, block = sparse_designs(), sparse_block(N)
     print(f"  scipy made the sparse designs in {time.perf_counter() - t0:.1f} s", flush=True)
     cases = spmv_cases(device, designs, block)
-    max_abs.update(phase_spmv_kernels(device, cases))
+    forced = phase_forced_int64(device, designs["sparse"])
+    max_abs.update(phase_spmv_kernels(device, cases + forced))
+    del forced
 
     main_launches = []
 
@@ -2075,6 +2435,13 @@ def main() -> int:
         if tiled:
             raise AssertionError(f"the multi-device path launched {tiled}, which no route names")
     main_launches.extend(multi["launches"])
+    del multi
+    gc.collect()
+    torch.cuda.empty_cache()
+    wide_nnz = run_main_path("sparse design past 2^31 - 1 nonzeros", phase_wide_nnz,
+                             must_launch=WIDE_NNZ_KERNELS, must_not=SPARSE_KERNELS)
+    phase_wide_nnz_times(card, wide_nnz)
+    del wide_nnz
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         bound_ms, bound_by = times[name]["bound"]

@@ -15,16 +15,18 @@ import numpy as np
 def counting_argsort(keys: np.ndarray, num_segments: int):
     """Stable argsort + segment bounds for bounded int keys.
 
-    Returns ``(perm, bounds)``, int32 ``(n,)`` and ``(num_segments + 1,)``:
-    segment ``s`` occupies ``perm[bounds[s]:bounds[s+1]]``.  Negative keys
+    Returns ``(perm, bounds)``, ``(n,)`` and ``(num_segments + 1,)``: int32,
+    or int64 past 2³¹ − 1 keys, so that a position never wraps around.
+    Segment ``s`` occupies ``perm[bounds[s]:bounds[s+1]]``.  Negative keys
     (missing and ``drop_first`` sentinels) sort to the front, before
     ``bounds[0]``, and fall in no segment.
     """
     keys = np.ascontiguousarray(keys, dtype=np.int32)
-    perm = np.argsort(keys, kind="stable").astype(np.int32)
+    positions = np.int64 if len(keys) > 2**31 - 1 else np.int32
+    perm = np.argsort(keys, kind="stable").astype(positions, copy=False)
     bounds = np.searchsorted(
         keys[perm], np.arange(num_segments + 1, dtype=np.int64)
-    ).astype(np.int32)
+    ).astype(positions, copy=False)
     return perm, bounds
 
 

@@ -3,10 +3,10 @@
 //   out[s, j] = sum_{bounds[s] <= t < bounds[s+1]} a[t] * scale[idx[t]] * values[idx[t], j]
 //
 // for a (E,) per element, idx (E,) int32 source rows sorted by segment,
-// bounds (W + 1,) int32 with bounds[0] = 0 and bounds[W] = E, scale (n_src,)
-// optional (null: 1), and values (n_src, m) row-major with m >= 1.  Every
-// sparse reduction of a SparseMatrix and of a DeviceDesign's sparse block is
-// one call of it:
+// bounds (W + 1,) int32 or int64 with bounds[0] = 0 and bounds[W] = E, scale
+// (n_src,) optional (null: 1), and values (n_src, m) row-major with m >= 1.
+// Every sparse reduction of a SparseMatrix and of a DeviceDesign's sparse
+// block is one call of it:
 //
 //   CSR X @ v        a = CSR data, idx = CSR columns, bounds = CSR indptr
 //   CSC X.T @ r      a = CSC data, idx = CSC rows,    bounds = CSC indptr
@@ -68,7 +68,21 @@
 //   bound loads and zero stores over empty segments, the 16-element stride
 //   between the lanes' loads, and a log2 W binary search in every thread.
 //
-// ptxas (-O3, sm_90a, CUDA 12.8, as tools/time_spmv.py prints it):
+// Element offsets.  The bounds are int32 (Off = int) up to 2^31 - 1
+// elements and int64 (Off = long long) past it; the indices stay int32, as
+// they index at most n_src rows.  Every element position (the tile's first
+// element y0, the loads of a and idx) is 64-bit in both instantiations.  A
+// tile stages its segment ends as int: the int32 layout as they are, the
+// int64 layout relative to y0 and clamped to the tile (the segment still
+// open at the tile's end may end 2^31 elements later), so its shared stage
+// does not grow.  The int32 instantiation keeps the absolute ends, whose
+// staging costs no subtract and clamp: those cost 4-6% on an H100 at the
+// reference's sparse_narrow CSR matvec (3M segments, 90k elements: bound
+// loads are the work; tools/time_spmv.py).
+// Both sum in the same order, so they agree bit for bit on one layout.
+//
+// ptxas (-O3, sm_90a, CUDA 12.8, as tools/time_spmv.py prints it; the int
+// and long long bounds' instantiations alike):
 //   spmv_tiles<double, 1> 72 registers, 10,808 bytes shared
 //   spmv_tiles<float, 1>  72 registers,  7,204 bytes shared
 //   spmv_tiles<double, 4> 48 registers, 27,944 bytes shared
@@ -106,14 +120,15 @@ static_assert(tile_items<group_columns(8)>() == tile_items<group_columns(4)>(), 
 // The merge coordinate of diagonal d: how many segment ends come before
 // item d, i.e. the number of r < W with r + bounds[r + 1] < d.  The 32 lanes
 // of a warp probe 32 points of the open interval at once.
-__device__ __forceinline__ long long diagonal_rows(const int* __restrict__ bounds, int W,
+template <typename Off>
+__device__ __forceinline__ long long diagonal_rows(const Off* __restrict__ bounds, int W,
                                                    long long E, long long d) {
   const int lane = threadIdx.x & 31;
   long long lo = d - E > 0 ? d - E : 0;  // every r < d - E ends before d
   long long hi = d < W ? d : W;          // no r >= d does
   while (lo < hi) {
     const long long r = lo + ((hi - lo) * lane) / 32;
-    const bool before = r + __ldg(bounds + r + 1) < d;
+    const bool before = r + (long long)__ldg(bounds + r + 1) < d;
     const int c = __popc(__ballot_sync(FULL, before));
     if (c == 0) break;  // r = lo does not end before d
     const long long last = __shfl_sync(FULL, r, c - 1);
@@ -126,9 +141,9 @@ __device__ __forceinline__ long long diagonal_rows(const int* __restrict__ bound
 // starts[g] = diagonal_rows(g * TILE) for g = 0 .. tiles: where each tile's
 // span of the merge begins.  It depends on the layout alone, so the wrapper
 // builds it once per plan; one warp per entry.
-template <int TILE>
+template <int TILE, typename Off>
 __global__ void __launch_bounds__(256)
-spmv_starts(const int* __restrict__ bounds, int W, long long E, int tiles,
+spmv_starts(const Off* __restrict__ bounds, int W, long long E, int tiles,
             int* __restrict__ starts) {
   const int g = (int)(((long long)blockIdx.x * 256 + threadIdx.x) >> 5);
   if (g > tiles) return;
@@ -137,12 +152,19 @@ spmv_starts(const int* __restrict__ bounds, int W, long long E, int tiles,
   if ((threadIdx.x & 31) == 0) starts[g] = (int)x;
 }
 
+// Whether a layout's segment ends are staged relative to its tile's first
+// element (int64 bounds) or as they are (int32).
+template <typename Off>
+constexpr bool RELATIVE_ENDS = sizeof(Off) > sizeof(int);
+
 // Loads tile g's slice of the layout into registers: the ends of its
-// segments (bounds[r + 1], E past the last segment) and its elements'
-// indices and data, strided by THREADS so that the loads coalesce.
-template <typename T, int THREADS, int ITEMS>
+// segments (bounds[r + 1], E past the last segment; for int64 bounds
+// relative to the tile's first element y0 and clamped to its nnz elements)
+// and its elements' indices and data, strided by THREADS so that the loads
+// coalesce.
+template <typename T, int THREADS, int ITEMS, typename Off>
 __device__ __forceinline__ void load_tile(const T* __restrict__ a, const int* __restrict__ idx,
-                                          const int* __restrict__ bounds, int W, long long E,
+                                          const Off* __restrict__ bounds, int W, long long E,
                                           long long g, int x0, int x1, int (&ee)[ITEMS + 1],
                                           int (&ii)[ITEMS], T (&ff)[ITEMS]) {
   constexpr int TILE = THREADS * ITEMS;
@@ -153,7 +175,13 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ a, const int* __
 #pragma unroll
   for (int it = 0; it <= ITEMS; ++it) {
     const int i = threadIdx.x + it * THREADS;
-    ee[it] = i <= rows && x0 + i < W ? __ldg(bounds + x0 + i + 1) : (int)E;
+    if constexpr (RELATIVE_ENDS<Off>) {
+      const long long end =
+          i <= rows && x0 + i < W ? (long long)__ldg(bounds + x0 + i + 1) - y0 : nnz;
+      ee[it] = end < nnz ? (int)end : nnz;
+    } else {
+      ee[it] = i <= rows && x0 + i < W ? __ldg(bounds + x0 + i + 1) : (int)E;
+    }
   }
 #pragma unroll
   for (int it = 0; it < ITEMS; ++it) {
@@ -166,9 +194,9 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ a, const int* __
 // Each block takes tiles blockIdx.x, blockIdx.x + gridDim.x, ... (about one
 // wave of blocks).  While it sums one tile, the loads of its next tile's
 // slice are in flight, so a tile waits only on its gathers.
-template <typename T, int MC>
+template <typename T, int MC, typename Off>
 __global__ void __launch_bounds__(Shape<MC>::THREADS)
-spmv_tiles(const T* __restrict__ a, const int* __restrict__ idx, const int* __restrict__ bounds,
+spmv_tiles(const T* __restrict__ a, const int* __restrict__ idx, const Off* __restrict__ bounds,
            const int* __restrict__ starts, const T* __restrict__ scale,
            const T* __restrict__ values, int W, long long E, int m, int tiles,
            T* __restrict__ out, T* __restrict__ carry_val) {
@@ -176,7 +204,7 @@ spmv_tiles(const T* __restrict__ a, const int* __restrict__ idx, const int* __re
   constexpr int ITEMS = Shape<MC>::ITEMS;
   constexpr int TILE = THREADS * ITEMS;
   constexpr int WARPS = THREADS / 32;
-  __shared__ int s_ends[TILE + 1];  // bounds[r + 1] of the tile's segments
+  __shared__ int s_ends[TILE + 1];  // bounds[r + 1] of the tile's segments (- y0, clamped)
   __shared__ T s_buf[MC * TILE];    // products [0, nnz), then segment sums
   __shared__ int s_wkey[WARPS];
   __shared__ T s_wval[WARPS][MC];
@@ -194,7 +222,7 @@ spmv_tiles(const T* __restrict__ a, const int* __restrict__ idx, const int* __re
   int ee[ITEMS + 1];
   int ii[ITEMS];
   T ff[ITEMS];
-  load_tile<T, THREADS, ITEMS>(a, idx, bounds, W, E, g, cx0, cx1, ee, ii, ff);
+  load_tile<T, THREADS, ITEMS, Off>(a, idx, bounds, W, E, g, cx0, cx1, ee, ii, ff);
   int nx0 = 0;  // the same for tile g + step
   int nx1 = 0;
   if (g + step < tiles) {
@@ -206,7 +234,8 @@ spmv_tiles(const T* __restrict__ a, const int* __restrict__ idx, const int* __re
     const long long d0 = (long long)g * TILE;
     const int items = (int)((d0 + TILE < W + E ? d0 + TILE : W + E) - d0);
     const long long x0 = cx0;
-    const long long y0 = d0 - x0;
+    // the staged ends less this are relative to the tile's first element
+    const long long shift = RELATIVE_ENDS<Off> ? 0 : d0 - x0;
     const int rows = cx1 - cx0;  // segment ends in the tile
     const int nnz = items - rows;  // elements in the tile
 
@@ -235,7 +264,7 @@ spmv_tiles(const T* __restrict__ a, const int* __restrict__ idx, const int* __re
     if (g + step < tiles) {
       cx0 = nx0;
       cx1 = nx1;
-      load_tile<T, THREADS, ITEMS>(a, idx, bounds, W, E, g + step, cx0, cx1, ee, ii, ff);
+      load_tile<T, THREADS, ITEMS, Off>(a, idx, bounds, W, E, g + step, cx0, cx1, ee, ii, ff);
       if (g + 2 * step < tiles) {
         nx0 = __ldg(starts + g + 2 * step);
         nx1 = __ldg(starts + g + 2 * step + 1);
@@ -248,7 +277,7 @@ spmv_tiles(const T* __restrict__ a, const int* __restrict__ idx, const int* __re
     int hi = dt < rows ? dt : rows;
     while (lo < hi) {
       const int mid = (lo + hi) >> 1;
-      if (mid + (long long)s_ends[mid] - y0 < dt) lo = mid + 1; else hi = mid;
+      if (mid + (long long)s_ends[mid] - shift < dt) lo = mid + 1; else hi = mid;
     }
     const int xs = lo;  // tile-relative segment
     int x = xs;
@@ -260,7 +289,7 @@ spmv_tiles(const T* __restrict__ a, const int* __restrict__ idx, const int* __re
 #pragma unroll
     for (int it = 0; it < ITEMS; ++it) {
       if (dt + it < items) {
-        if (y0 + y < s_ends[x]) {
+        if (shift + y < s_ends[x]) {
 #pragma unroll
           for (int j = 0; j < MC; ++j)
             if (j < nj) acc[j] += s_buf[j * TILE + y];
@@ -339,16 +368,16 @@ spmv_tiles(const T* __restrict__ a, const int* __restrict__ idx, const int* __re
 // Adds the open sums of tiles g .. g1 - 1 to the segment r = starts[g + 1]
 // they all end in, which ends in tile g1: one warp per run, lane-strided
 // over the tiles in order, then a fixed shuffle tree.
-template <typename T, int TILE>
+template <typename T, int TILE, typename Off>
 __global__ void __launch_bounds__(256)
-spmv_carries(const int* __restrict__ bounds, const int* __restrict__ starts, int W, int tiles,
+spmv_carries(const Off* __restrict__ bounds, const int* __restrict__ starts, int W, int tiles,
              int m, const T* __restrict__ carry_val, T* __restrict__ out) {
   const int g = (int)(((long long)blockIdx.x * 256 + threadIdx.x) >> 5);
   const int lane = threadIdx.x & 31;
   if (g >= tiles) return;
   const int r = starts[g + 1];
   if (r >= W || (g > 0 && starts[g] == r)) return;  // none, or not the run's first
-  const int g1 = (int)(((long long)r + bounds[r + 1]) / TILE);
+  const int g1 = (int)(((long long)r + (long long)bounds[r + 1]) / TILE);
   for (int j = 0; j < m; ++j) {
     T s = T(0);
     for (int b = g + lane; b < g1; b += 32) s += carry_val[(long long)b * m + j];
@@ -363,16 +392,16 @@ int tiles(int W, long long E) {
   return (int)(((long long)W + E + tile_items<MC>() - 1) / tile_items<MC>());
 }
 
-template <int MC>
-int make_starts(const int* bounds, int W, long long E, int* starts, cudaStream_t st) {
+template <int MC, typename Off>
+int make_starts(const Off* bounds, int W, long long E, int* starts, cudaStream_t st) {
   const int n = tiles<MC>(W, E);
-  spmv_starts<tile_items<MC>()><<<(unsigned)(((n + 1) * 32LL + 255) / 256), 256, 0, st>>>(
+  spmv_starts<tile_items<MC>(), Off><<<(unsigned)(((n + 1) * 32LL + 255) / 256), 256, 0, st>>>(
       bounds, W, E, n, starts);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int MC>
-int launch_shape(const T* a, const int* idx, const int* bounds, const int* starts,
+template <typename T, int MC, typename Off>
+int launch_shape(const T* a, const int* idx, const Off* bounds, const int* starts,
                  const T* scale, const T* values, int W, long long E, int m, T* out,
                  T* carry_val, cudaStream_t st) {
   const int n = tiles<MC>(W, E);
@@ -387,31 +416,38 @@ int launch_shape(const T* a, const int* idx, const int* bounds, const int* start
     int sms = 0, per_sm = 0;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, spmv_tiles<T, MC>,
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, spmv_tiles<T, MC, Off>,
                                                           Shape<MC>::THREADS, 0);
     if (err == cudaSuccess) resident[device] = sms * per_sm;
   }
   if (err != cudaSuccess) return (int)err;
   const long long wave = (long long)resident[device] / groups;
   const int step = (int)(wave < 1 ? 1 : wave < n ? wave : n);
-  spmv_tiles<T, MC><<<dim3((unsigned)step, (unsigned)groups), Shape<MC>::THREADS, 0, st>>>(
+  spmv_tiles<T, MC, Off><<<dim3((unsigned)step, (unsigned)groups), Shape<MC>::THREADS, 0, st>>>(
       a, idx, bounds, starts, scale, values, W, E, m, n, out, carry_val);
   err = cudaGetLastError();
   if (err != cudaSuccess || n == 1) return (int)err;
-  spmv_carries<T, tile_items<MC>()><<<(unsigned)((n * 32LL + 255) / 256), 256, 0, st>>>(
+  spmv_carries<T, tile_items<MC>(), Off><<<(unsigned)((n * 32LL + 255) / 256), 256, 0, st>>>(
       bounds, starts, W, n, m, carry_val, out);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch(const T* a, const int* idx, const int* bounds, const int* starts, const T* scale,
+template <typename T, typename Off>
+int launch(const T* a, const int* idx, const Off* bounds, const int* starts, const T* scale,
            const T* values, int W, long long E, int m, T* out, T* carry_val, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (m == 1)
-    return launch_shape<T, 1>(a, idx, bounds, starts, scale, values, W, E, m, out, carry_val,
-                              st);
-  return launch_shape<T, group_columns(sizeof(T))>(a, idx, bounds, starts, scale, values, W,
-                                                   E, m, out, carry_val, st);
+    return launch_shape<T, 1, Off>(a, idx, bounds, starts, scale, values, W, E, m, out,
+                                   carry_val, st);
+  return launch_shape<T, group_columns(sizeof(T)), Off>(a, idx, bounds, starts, scale, values,
+                                                        W, E, m, out, carry_val, st);
+}
+
+template <typename Off>
+int starts_for(const Off* bounds, int W, long long E, int m, int* starts, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return m == 1 ? make_starts<1>(bounds, W, E, starts, st)
+                : make_starts<group_columns(8)>(bounds, W, E, starts, st);
 }
 
 }  // namespace
@@ -423,28 +459,47 @@ int tabmat_spmv_tiles(int W, long long E, int m) {
   return m == 1 ? tiles<1>(W, E) : tiles<group_columns(8)>(W, E);
 }
 
-// starts (tiles + 1 int32) for a layout and m: built once per plan.
+// starts (tiles + 1 int32: segment indices, W < 2^31) for a layout and m,
+// from int32 or int64 bounds: built once per plan.
 int tabmat_spmv_starts(const int* bounds, int W, long long E, int m, int* starts,
                        void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return m == 1 ? make_starts<1>(bounds, W, E, starts, st)
-                : make_starts<group_columns(8)>(bounds, W, E, starts, st);
+  return starts_for<int>(bounds, W, E, m, starts, stream);
+}
+
+int tabmat_spmv_starts_i64(const long long* bounds, int W, long long E, int m, int* starts,
+                           void* stream) {
+  return starts_for<long long>(bounds, W, E, m, starts, stream);
 }
 
 // out holds W * m values, carry_val tiles * m.  E >= 1: with no element
 // every segment is empty, and the wrapper returns zeros without a launch.
+// The _i64 functions take int64 bounds.
 int tabmat_spmv_f64(const double* a, const int* idx, const int* bounds, const int* starts,
                     const double* scale, const double* values, int W, long long E, int m,
                     double* out, double* carry_val, void* stream) {
-  return launch<double>(a, idx, bounds, starts, scale, values, W, E, m, out, carry_val,
-                        stream);
+  return launch<double, int>(a, idx, bounds, starts, scale, values, W, E, m, out, carry_val,
+                             stream);
 }
 
 int tabmat_spmv_f32(const float* a, const int* idx, const int* bounds, const int* starts,
                     const float* scale, const float* values, int W, long long E, int m,
                     float* out, float* carry_val, void* stream) {
-  return launch<float>(a, idx, bounds, starts, scale, values, W, E, m, out, carry_val,
-                       stream);
+  return launch<float, int>(a, idx, bounds, starts, scale, values, W, E, m, out, carry_val,
+                            stream);
+}
+
+int tabmat_spmv_f64_i64(const double* a, const int* idx, const long long* bounds,
+                        const int* starts, const double* scale, const double* values, int W,
+                        long long E, int m, double* out, double* carry_val, void* stream) {
+  return launch<double, long long>(a, idx, bounds, starts, scale, values, W, E, m, out,
+                                   carry_val, stream);
+}
+
+int tabmat_spmv_f32_i64(const float* a, const int* idx, const long long* bounds,
+                        const int* starts, const float* scale, const float* values, int W,
+                        long long E, int m, float* out, float* carry_val, void* stream) {
+  return launch<float, long long>(a, idx, bounds, starts, scale, values, W, E, m, out,
+                                  carry_val, stream);
 }
 
 const char* tabmat_cuda_error_string(int err) {

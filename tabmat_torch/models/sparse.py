@@ -2,9 +2,10 @@
 
 Port of ``tabmat_tpu/models/sparse.py``.  Construction, slicing and export
 stay on the host as a ``scipy.sparse.csc_matrix`` with sorted indices and a
-CSR twin; the first op uploads each layout once (int32 indices and indptr,
-the data in the matrix's dtype) and every op is one launch of the sparse
-segment product (``ops/spmv_kernel.py``) on the matrix's device:
+CSR twin; the first op uploads each layout once (int32 indices, the indptr
+as int32 bounds, or int64 past 2³¹ − 1 nonzeros, the data in the matrix's
+dtype) and every op is one launch of the sparse segment product
+(``ops/spmv_kernel.py``) on the matrix's device:
 
 - ``matvec``           → the CSR layout (segments = rows);
 - ``transpose_matvec`` → the CSC layout (segments = columns);

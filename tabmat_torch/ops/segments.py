@@ -5,8 +5,10 @@ the categorical layers (tmv, sandwich diagonals, cat×dense and cat×cat
 cross cells) runs through a plan built once per key array on the host:
 
 - ``perm`` (E,) int32: the rows whose key is valid, stably sorted by key;
-- ``bounds`` (W + 1,) int32: segment ``s`` is ``perm[bounds[s]:bounds[s+1]]``,
-  with ``bounds[0] = 0`` and ``bounds[W] = E``.
+- ``bounds`` (W + 1,) int32, or int64 for a sparse layout past 2³¹ − 1
+  elements (``sparse_ops.bounds_dtype``): segment ``s`` is
+  ``perm[bounds[s]:bounds[s+1]]``, with ``bounds[0] = 0`` and
+  ``bounds[W] = E``.
 
 Rows with a negative key (missing, ``drop_first``) are left out of
 ``perm``, so they fall in no segment.  The reference kept them in front of
@@ -71,12 +73,18 @@ def build_plan(keys: np.ndarray, num_segments: int, device) -> SegmentPlan:
 
 def stack(plans) -> SegmentPlan:
     """One plan whose segments are those of ``plans`` in turn, over the same
-    rows: one segment sum then serves several categoricals at once."""
+    rows: one segment sum then serves several categoricals at once.
+
+    It stacks categorical plans (at most n elements each), whose bounds
+    stay int32; no sparse layout reaches it.
+    """
     offset = 0
     bounds = []
     for p in plans:
+        assert p.bounds.dtype == torch.int32, "stack takes the categoricals' int32 plans"
         bounds.append(p.bounds[:-1] + offset)
         offset += p.perm.shape[0]
+    assert offset <= np.iinfo(np.int32).max, "the stacked plan's bounds must fit int32"
     bounds.append(torch.full((1,), offset, dtype=torch.int32, device=plans[0].device))
     return SegmentPlan(
         torch.cat([p.perm for p in plans]), torch.cat(bounds), plans[0].n_rows

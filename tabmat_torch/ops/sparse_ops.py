@@ -21,6 +21,13 @@ a CSC matrix one with a segment per column, so every sparse reduction is
 The reference's ``_pg`` (lane-shuffle gather), ``_window`` (windowed take)
 and plain variants formed each reduction as a cumsum over all nonzeros,
 differenced at the bounds; here each segment is summed directly.
+
+Every layout and plan keeps int32 indices (they index at most n rows or k
+columns) and takes int64 bounds exactly when it holds more than
+``INT32_MAX`` elements (:func:`bounds_dtype`), as the reference keeps
+scipy's int64 indptr past 2³¹ − 1 nonzeros (``tabmat_tpu/models/
+sparse.py:154-175``).  What stays int32 is the number of segments (rows,
+columns, cells), which the budgets keep far below 2³¹.
 """
 
 import numpy as np
@@ -31,26 +38,47 @@ from .segments import SegmentPlan
 from .spmv_kernel import spmv
 
 INT32_MAX = 2**31 - 1
+# the kernels number a plan's segments (rows, columns, cells) in int32
+SEGMENTS_MAX = 2**31 - 1
+# elements cast and copied at a time by _to_device
+_CAST_CHUNK = 1 << 27
+_TORCH_INT = {np.int32: torch.int32, np.int64: torch.int64}
 
 
-def _int32(name: str, count: int) -> None:
-    if count > INT32_MAX:
+def bounds_dtype(count: int):
+    """The bounds' dtype of a layout of ``count`` elements: int64 past
+    ``INT32_MAX``, else int32."""
+    return np.int64 if count > INT32_MAX else np.int32
+
+
+def _segments(name: str, count: int) -> None:
+    if count > SEGMENTS_MAX:
         raise OverflowError(
-            f"{count} {name} do not fit the kernels' int32 indices (at most {INT32_MAX})"
+            f"{count} {name} exceed the kernels' int32 segment indices (at most "
+            f"{SEGMENTS_MAX}); the budgets keep a plan's segments far below that"
         )
+
+
+def _to_device(array: np.ndarray, dtype, device) -> torch.Tensor:
+    """``array`` as ``dtype`` on ``device``, cast a chunk at a time, so that
+    the host never holds a cast copy of a large layout."""
+    out = torch.empty(len(array), dtype=_TORCH_INT[dtype], device=device)
+    for lo in range(0, len(array), _CAST_CHUNK):
+        out[lo : lo + _CAST_CHUNK] = torch.as_tensor(
+            np.asarray(array[lo : lo + _CAST_CHUNK], dtype=dtype))
+    return out
 
 
 def compressed_layout(mat, n_src: int, device):
     """``(data, plan)`` of a scipy CSR or CSC matrix on ``device``.
 
-    ``plan`` is the matrix's own layout: ``perm`` its int32 indices, ``bounds``
-    its int32 indptr, ``n_rows`` the length ``n_src`` of the operand they
-    index.  Raises past 2³¹ − 1 nonzeros.
+    ``plan`` is the matrix's own layout: ``perm`` its indices as int32,
+    ``bounds`` its indptr as int32, or as int64 past ``INT32_MAX`` nonzeros,
+    ``n_rows`` the length ``n_src`` of the operand they index.
     """
-    _int32("nonzeros", mat.nnz)
     plan = SegmentPlan(
-        torch.as_tensor(np.asarray(mat.indices, dtype=np.int32), device=device),
-        torch.as_tensor(np.asarray(mat.indptr, dtype=np.int32), device=device),
+        _to_device(mat.indices, np.int32, device),
+        _to_device(mat.indptr, bounds_dtype(mat.nnz), device),
         n_src,
     )
     return torch.as_tensor(np.asarray(mat.data), device=device), plan
@@ -91,21 +119,23 @@ def pair_plan(csr, device):
     is one segment sum over the within-row pairs keyed by ``i·k + j``.  Only
     the pairs with ``i ≤ j`` are kept (:func:`pair_sandwich` mirrors them), so
     the assembled matrix is exactly symmetric.  The products ``prod`` and
-    their rows (``plan.perm``) are sorted by key once, here.
+    their rows (``plan.perm``) are sorted by key once, here.  A
+    ``SparseMatrix`` builds it only under ``PAIR_SANDWICH_MAX_PAIRS``, so
+    its bounds are int32 there; they follow :func:`bounds_dtype` all the
+    same.
     """
     k = csr.shape[1]
-    _int32("pair segments", k * k)
+    _segments("pair segments", k * k)
     ia, ib, row = _native.expand_pairs_csr(csr.indptr)
     cols = np.asarray(csr.indices, dtype=np.int64)
     ca, cb = cols[ia], cols[ib]
     upper = ca <= cb
     ia, ib, row = ia[upper], ib[upper], row[upper]
-    _int32("pairs", len(ia))
     perm, bounds = _native.counting_argsort(ca[upper] * k + cb[upper], k * k)
     data = np.asarray(csr.data)
     plan = SegmentPlan(
         torch.as_tensor(row[perm].astype(np.int32), device=device),
-        torch.as_tensor(bounds, device=device),
+        torch.as_tensor(bounds.astype(bounds_dtype(len(perm))), device=device),
         csr.shape[0],
     )
     return torch.as_tensor((data[ia] * data[ib])[perm], device=device), plan
@@ -152,7 +182,8 @@ def code_column_plan(codes: np.ndarray, n_codes: int, n_rows: int, csc, device,
     per cell of the (n_codes, k) result, the data ``a`` and rows
     (``plan.perm``) sorted by key once, here.  With ``compress`` the
     segments are only the observed keys, ``uniq`` their flat cells (else
-    None).
+    None).  The bounds follow :func:`bounds_dtype` of the plan's elements
+    (``C`` times the nonzeros).
     """
     k = csc.shape[1]
     n_cells = n_codes * k
@@ -170,14 +201,13 @@ def code_column_plan(codes: np.ndarray, n_codes: int, n_rows: int, csc, device,
         n_segments = len(uniq)
         uniq = torch.as_tensor(uniq, device=device)
     else:
-        _int32("cells", n_cells)
+        _segments("cells", n_cells)
         n_segments = n_cells
-    _int32("elements", len(keys))
     perm, bounds = _native.counting_argsort(keys, n_segments)
     perm = perm[bounds[0] :]
     plan = SegmentPlan(
         torch.as_tensor(rows[perm].astype(np.int32), device=device),
-        torch.as_tensor(bounds - bounds[0], device=device),
+        torch.as_tensor((bounds - bounds[0]).astype(bounds_dtype(len(perm))), device=device),
         n_rows,
     )
     a = torch.as_tensor(np.tile(np.asarray(csc.data), C)[perm], device=device)

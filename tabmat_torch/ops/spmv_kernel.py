@@ -1,7 +1,7 @@
 """The hand-written CUDA sparse segment product, and its plain version.
 
 Kernel: ``tabmat_torch/csrc/spmv.cu``, instantiated for ``double`` and
-``float``::
+``float``, each for int32 and int64 bounds::
 
     out[s, j] = Σ_{bounds[s] ≤ t < bounds[s+1]} a[t] · scale[idx[t]] · values[idx[t], j]
 
@@ -10,7 +10,9 @@ with the layout ``(idx, bounds)`` held in a :class:`~.segments.SegmentPlan`
 ``a`` one value per element and ``scale`` optional, one per source row.  A
 CSR or CSC matrix is such a layout as it stands (the indices sorted by row
 or column, the indptr as bounds), and so are the pair plan of the sparse
-sandwich and the (code, column) plan of a sparse×categorical cell.
+sandwich and the (code, column) plan of a sparse×categorical cell.  The
+indices are int32; the bounds int32, or int64 for a layout past 2³¹ − 1
+elements (``sparse_ops.INT32_MAX``), which launches ``spmv<T,int64>``.
 
 It replaces ``tabmat_tpu/ops/pallas_tmv_fused.py:_kernel`` (the one-pass
 CSR ``Xᵀv``) and, at the sparse callers, the gather, window-take and
@@ -39,10 +41,20 @@ import torch
 
 # Launch counts by instantiation: each rises by one where that kernel is
 # launched, nowhere else.
-launches = {"spmv<double>": 0, "spmv<float>": 0}
+launches = {"spmv<double>": 0, "spmv<float>": 0, "spmv<double,int64>": 0,
+            "spmv<float,int64>": 0}
 
-_NAMES = {torch.float64: "spmv<double>", torch.float32: "spmv<float>"}
-_SYMBOLS = {"spmv<double>": "tabmat_spmv_f64", "spmv<float>": "tabmat_spmv_f32"}
+# (values dtype, bounds dtype) -> instantiation
+_NAMES = {
+    (torch.float64, torch.int32): "spmv<double>",
+    (torch.float32, torch.int32): "spmv<float>",
+    (torch.float64, torch.int64): "spmv<double,int64>",
+    (torch.float32, torch.int64): "spmv<float,int64>",
+}
+_SYMBOLS = {"spmv<double>": "tabmat_spmv_f64", "spmv<float>": "tabmat_spmv_f32",
+            "spmv<double,int64>": "tabmat_spmv_f64_i64",
+            "spmv<float,int64>": "tabmat_spmv_f32_i64"}
+_STARTS = {torch.int32: "tabmat_spmv_starts", torch.int64: "tabmat_spmv_starts_i64"}
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
@@ -52,8 +64,8 @@ _TABLE_SIGNATURES = {
     # (W, E, m): the merge tiles of a call
     "tabmat_spmv_tiles": [ctypes.c_int, ctypes.c_longlong, ctypes.c_int],
     # (bounds, W, E, m, starts, stream): where each tile begins
-    "tabmat_spmv_starts": [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                           ctypes.c_void_p, ctypes.c_void_p],
+    **{symbol: [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_void_p] for symbol in _STARTS.values()},
 }
 
 _lib = None
@@ -86,17 +98,19 @@ def spmv(values: torch.Tensor, plan, a: torch.Tensor, scale=None) -> torch.Tenso
     """``Σ_t a[t] · scale[idx[t]] · values[idx[t]]`` per segment of ``plan``
     → (W,) or (W, m).
 
-    CPU tensors take :func:`spmv_plain`.  CUDA tensors launch the kernel;
-    ``values``, ``a`` and ``scale`` must be contiguous and on the plan's
-    device.
+    CPU tensors take :func:`spmv_plain`.  CUDA tensors launch the kernel
+    for the values' dtype and the plan's bounds (int32 or int64); ``values``,
+    ``a`` and ``scale`` must be contiguous and on the plan's device.
     """
     operands = (values, a) if scale is None else (values, a, scale)
     if not all(torch.is_tensor(x) for x in operands):
         raise TypeError("values, a and scale must be torch tensors")
     if values.ndim not in (1, 2):
         raise ValueError(f"values must have rank 1 or 2, got {values.ndim}")
-    if values.dtype not in _NAMES:
+    if values.dtype not in (torch.float64, torch.float32):
         raise TypeError(f"values must be float64 or float32, got {values.dtype}")
+    if plan.bounds.dtype not in _STARTS:
+        raise TypeError(f"the plan's bounds must be int32 or int64, got {plan.bounds.dtype}")
     if any(x.dtype != values.dtype for x in operands):
         raise TypeError(f"a and scale must have the dtype of values, {values.dtype}")
     if values.shape[0] != plan.n_rows:
@@ -113,12 +127,14 @@ def spmv(values: torch.Tensor, plan, a: torch.Tensor, scale=None) -> torch.Tenso
         raise ValueError(f"the kernels run on cpu or cuda tensors, got {values.device}")
     if not all(x.is_contiguous() for x in operands):
         raise ValueError("the CUDA spmv needs contiguous values, a and scale")
+    if plan.perm.dtype != torch.int32:
+        raise TypeError(f"the CUDA spmv needs int32 indices, got {plan.perm.dtype}")
     m = 1 if values.ndim == 1 else values.shape[1]
     W, E = plan.num_segments, plan.perm.shape[0]
     if E == 0 or m == 0:
         return torch.zeros((W,) + tuple(values.shape[1:]), dtype=values.dtype,
                            device=values.device)
-    name = _NAMES[values.dtype]
+    name = _NAMES[values.dtype, plan.bounds.dtype]
     from .. import _build
 
     with torch.cuda.device(values.device):
@@ -151,8 +167,8 @@ def _tile_starts(lib, plan, W: int, E: int, m: int, stream) -> torch.Tensor:
 
         tiles = lib.tabmat_spmv_tiles(W, E, m)
         starts = torch.empty(tiles + 1, dtype=torch.int32, device=plan.perm.device)
-        err = lib.tabmat_spmv_starts(plan.bounds.data_ptr(), W, E, m, starts.data_ptr(),
-                                     stream)
+        err = getattr(lib, _STARTS[plan.bounds.dtype])(plan.bounds.data_ptr(), W, E, m,
+                                                      starts.data_ptr(), stream)
         _build.raise_on(lib, err, "spmv.cu tile starts")
         plan.tables[key] = starts
     return starts

@@ -206,7 +206,8 @@ class _SparseBlock:
         self.pair = mat._pair_parts()
         self.cat = None
         self._csc_host = mat.array_csc
-        self.absmax = float(np.abs(mat.data).max()) if mat.data.size else 0.0
+        # max and -min: no |data| copy of a large layout on the host
+        self.absmax = float(np.maximum(mat.data.max(), -mat.data.min())) if mat.data.size else 0.0
 
     def rows(self, lo: int, hi: int, device) -> "_SparseBlock":
         """The block of rows ``lo:hi`` on ``device``, with layouts and plans of

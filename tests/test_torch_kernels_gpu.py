@@ -484,14 +484,18 @@ def _spmv_layout(rng, lengths, n_src, cuda):
 SPMV_TILE = {1: 128 * 7, "m>1": 256 * 3}
 
 
+@pytest.mark.parametrize("bounds", ["int32", "int64"])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
 @pytest.mark.parametrize("with_scale", [False, True], ids=["a", "a*scale"])
 @pytest.mark.parametrize("m", [1, 4, 5, 8, 9, 17])
 @pytest.mark.parametrize("layout", ["empty_and_long", "one_segment", "mostly_empty",
                                     "ends_on_tile_edges", "long_among_empties", "w1_e1",
                                     "trailing_empties"])
-def test_spmv_matches_plain_and_repeats(cuda, layout, m, with_scale, dtype):
+def test_spmv_matches_plain_and_repeats(cuda, layout, m, with_scale, dtype, bounds):
+    """Each instantiation against its plain version; the int64-bounds one
+    (``spmv<T,int64>``) also bit for bit the int32 one on the same layout."""
     from tabmat_torch.ops import spmv_kernel as spk
+    from tabmat_torch.ops.segments import SegmentPlan
 
     rng = np.random.default_rng(m + 10 * with_scale)
     n_src = 50_003
@@ -516,10 +520,16 @@ def test_spmv_matches_plain_and_repeats(cuda, layout, m, with_scale, dtype):
     scale = (torch.as_tensor(rng.random(n_src) + 0.5, dtype=dtype, device=cuda)
              if with_scale else None)
     name = f"spmv<{'double' if dtype == torch.float64 else 'float'}>"
+    if bounds == "int64":
+        narrow = spk.spmv(v, plan, a, scale)
+        plan = SegmentPlan(plan.perm, plan.bounds.long(), n_src)
+        name = name[:-1] + ",int64>"
     before = spk.launches[name]
     first, second = spk.spmv(v, plan, a, scale), spk.spmv(v, plan, a, scale)
     assert spk.launches[name] == before + 2
     assert torch.equal(first, second)
+    if bounds == "int64":
+        assert torch.equal(first, narrow)
     want = spk.spmv_plain(v, plan.perm, plan.bounds, a, scale)
     mag = spk.spmv_plain(v.abs().double(), plan.perm, plan.bounds, a.abs().double(),
                          None if scale is None else scale.abs().double()).clamp_min(1e-300)
@@ -577,3 +587,39 @@ def test_sparse_design_on_card(cuda):
     np.testing.assert_allclose(sm.matvec(v), Xs @ v, rtol=0, atol=1e-12)
     np.testing.assert_allclose(sm.sandwich(np.ones(n)), (Xs.T @ Xs).toarray(), rtol=0,
                                atol=1e-11)
+
+
+def test_sparse_design_past_the_limit_on_card(cuda, monkeypatch):
+    """The same design with ``sparse_ops.INT32_MAX`` lowered below its
+    layouts' sizes: every sparse op launches ``spmv<T,int64>`` and none
+    ``spmv<T>``, and each result is bit for bit the int32 layouts' one."""
+    from scipy import sparse as sps
+
+    from tabmat_torch.ops import sparse_ops
+    from tabmat_torch.ops import spmv_kernel as spk
+    from tabmat_torch.parallel.design import DeviceDesign
+
+    rng = np.random.default_rng(5)
+    n = 100_003
+    Xs = sps.random(n, 40, density=0.02, format="csc", random_state=rng)
+    Xd, codes = rng.standard_normal((n, 3)), rng.integers(0, 30, n)
+    w = torch.as_tensor(rng.random(n), device=cuda)
+    v = torch.as_tensor(rng.standard_normal(3 + 40 + 30), device=cuda)
+    results = {}
+    for limit in (sparse_ops.INT32_MAX, 1000):
+        monkeypatch.setattr(sparse_ops, "INT32_MAX", limit)
+        design = DeviceDesign.from_matrix(tt.SplitMatrix([
+            tt.DenseMatrix(Xd), tt.SparseMatrix(Xs),
+            tt.CategoricalMatrix(codes, categories=np.arange(30))]))
+        before = dict(spk.launches)
+        results[limit] = [design.sandwich(w), design.matvec(v), design.transpose_matvec(w),
+                          design.astype_float(torch.float32).sandwich(w.float())]
+        torch.cuda.synchronize()
+        launched = {k: spk.launches[k] - before[k] for k in before}
+        wide = limit == 1000
+        assert launched["spmv<double,int64>"] == (5 if wide else 0)
+        assert launched["spmv<float,int64>"] == (3 if wide else 0)
+        assert launched["spmv<double>"] == (0 if wide else 5)
+        assert launched["spmv<float>"] == (0 if wide else 3)
+    for narrow, wide in zip(*results.values()):
+        assert torch.equal(narrow, wide)

@@ -82,9 +82,10 @@ def test_kernel_phase_on_cpu():
         "sandwich<double>", "sandwich<float>", "sandwich_narrow<double>",
         "sandwich_narrow<float>", "sandwich_tri<float>", "sandwich_wide<float>",
         "sandwich_mma<double>", "sandwich_mma_tri<double>", "column_absmax")}
-    # the kernels line lists seventeen instantiations (the segment sum's two
-    # routes in both types among them), each timed in phase 8
-    assert len(smoke.KERNELS) == 17
+    # the kernels line lists nineteen instantiations (the segment sum's two
+    # routes in both types and the sparse product's int64 bounds among
+    # them), each timed in phase 8
+    assert len(smoke.KERNELS) == 19
     assert set(smoke.SANDWICH_TIMES) | {"column_absmax"} <= set(smoke.KERNELS)
 
 
@@ -279,6 +280,16 @@ def test_time_segsum_refuses_without_cuda(monkeypatch, capsys):
     assert capsys.readouterr().out == ""
 
 
+def test_time_spmv_refuses_without_cuda(monkeypatch, capsys):
+    spec = importlib.util.spec_from_file_location("time_spmv", ROOT / "tools" / "time_spmv.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(sys, "argv", ["time_spmv.py", "--parent-cu", "build/parent_spmv"])
+    assert tool.main() != 0
+    assert capsys.readouterr().out == ""
+
+
 def _time_sandwich():
     spec = importlib.util.spec_from_file_location("time_sandwich",
                                                   ROOT / "tools" / "time_sandwich.py")
@@ -464,7 +475,14 @@ def test_sparse_phases_on_cpu(monkeypatch):
     block = smoke.sparse_block(20_000)
     cases = smoke.spmv_cases(cpu, designs, block, levels=50)
     assert len(cases) == 9
-    assert smoke.phase_spmv_kernels(cpu, cases) == {"spmv<double>": 0.0, "spmv<float>": 0.0}
+    forced = smoke.phase_forced_int64(cpu, designs["sparse"])
+    assert [plan.bounds.dtype for _, plan, *_ in forced] == [torch.int64] * 3
+    assert smoke.phase_spmv_kernels(cpu, cases + forced) == {
+        "spmv<double>": 0.0, "spmv<float>": 0.0, "spmv<double,int64>": 0.0,
+        "spmv<float,int64>": 0.0}
+    from tabmat_torch.ops import sparse_ops
+
+    assert sparse_ops.INT32_MAX == 2**31 - 1  # restored after the forced check
     smoke.phase_sparse_standalone(designs, device=cpu)
     report = smoke.phase_mixed_path(20_000, 5, 50, device=cpu, sparse=block,
                                     fit_steps=smoke.SPARSE_FIT_STEPS)
@@ -489,6 +507,50 @@ def test_sparse_phases_on_cpu(monkeypatch):
     for kw in ({}, {"rows": rows}, {"cols": cols}, {"rows": rows, "cols": cols}):
         np.testing.assert_allclose(report["matrix"].sandwich(d, **kw), ref.sandwich(d, **kw),
                                    rtol=0, atol=1e-10)
+
+
+def test_wide_nnz_phase_on_cpu(monkeypatch, capsys):
+    """Phase 11 at 10,000 rows with ``INT32_MAX`` between a row half's
+    nonzeros and the whole matrix's (as 2^31 - 1 lies at 2^26 rows) and the
+    pair plan's budget at 0 (as 2^26 rows are past it): int64 layouts, the
+    ops against scipy, both steps against the host replica, and the sandwich
+    against its int32 halves."""
+    from tabmat_torch.models import sparse as port_sparse
+    from tabmat_torch.ops import sparse_ops
+
+    smoke = _chip_smoke()
+    monkeypatch.setattr(sparse_ops, "INT32_MAX", 200_000)
+    monkeypatch.setattr(port_sparse, "PAIR_SANDWICH_MAX_PAIRS", 0)
+    monkeypatch.setattr(port_sparse, "DENSE_SANDWICH_MAX_ELEMENTS", 2_300 * 1000)
+    state = smoke.phase_wide_nnz(n=10_000, device="cpu")
+    assert 200_000 < state["csc"].nnz < 2 * 200_000
+    assert state["matrix"]._csr_parts()[1].bounds.dtype == torch.int64
+    times = smoke.phase_wide_nnz_times("cpu", state)
+    assert state == {}
+    assert set(times) == {"CSR matvec", "CSC transpose-matvec"}
+    assert all(t["bound_by"] == "bytes" and t["bound_ms"] > 0 for t in times.values())
+    out = capsys.readouterr().out
+    assert out.count(" ok\n") == 5 and "FAIL" not in out
+
+
+def test_wide_nnz_design_is_past_int32():
+    """Phase 11's design at its full 2^26 rows: 2,214,592,521 nonzeros, each
+    row 28 to 38 of them, about 6.7e7 past 2^31 - 1; and the columns' closed
+    form at a small size."""
+    smoke = _chip_smoke()
+    L = smoke.wide_nnz_lengths(smoke.WIDE_NNZ_N)
+    nnz = int(L.sum(dtype=np.int64))
+    assert nnz == 33 * 2**26 + 9 >= 2_214_592_512
+    assert 6.6e7 < nnz - (2**31 - 1) < 6.8e7
+    assert L.min() == 28 and L.max() == 38
+    n = 2_000
+    X = smoke.wide_nnz_matrix(n).tocsr()
+    lengths = smoke.wide_nnz_lengths(n)
+    np.testing.assert_array_equal(np.diff(X.indptr), lengths)
+    r = np.repeat(np.arange(n), lengths)
+    j = np.arange(X.nnz) - X.indptr[r]
+    np.testing.assert_array_equal(X.indices, 26 * j + r % 26)
+    assert X.shape == (n, 1000) and np.all(np.isfinite(X.data))
 
 
 def test_multichip_phase_on_cpu(monkeypatch, capsys):

@@ -72,7 +72,8 @@ def test_layout_and_conversion():
     assert isinstance(carried, tt.SparseMatrix)
     assert carried.column_names == ref.column_names
     np.testing.assert_array_equal(carried.toarray(), ref.toarray())
-    # the device layouts are int32
+    # the device layouts are int32 up to 2^31 - 1 nonzeros
+    # (tests/test_torch_index_width.py holds them past it)
     data, plan = port._csc_parts()
     assert plan.perm.dtype == plan.bounds.dtype == torch.int32
     assert data.dtype == torch.float64 and plan.n_rows == N
@@ -276,15 +277,6 @@ def test_degenerate_structures():
     ints = tt.SparseMatrix(sps.csc_matrix(np.eye(4, dtype=np.int64)), device="cpu")
     ref_ints = tm.SparseMatrix(sps.csc_matrix(np.eye(4, dtype=np.int64)))
     _close(ints.matvec(np.arange(4.0)), ref_ints.matvec(np.arange(4.0)))
-
-
-def test_index_width_is_checked(monkeypatch):
-    from tabmat_torch.ops import sparse_ops
-
-    monkeypatch.setattr(sparse_ops, "INT32_MAX", 10)
-    X = sps.random(30, 3, density=0.5, format="csc", random_state=np.random.default_rng(2))
-    with pytest.raises(OverflowError, match="int32"):
-        tt.SparseMatrix(X, device="cpu").matvec(np.ones(3))
 
 
 def test_as_tabmat_and_hstack():
