@@ -39,6 +39,7 @@ try:
 except ImportError:  # pragma: no cover
     pd = None
 
+from .. import _trace
 from .._config import resolve_device
 from .._frames import nw
 from ..constructors import _split_sparse_and_dense_parts
@@ -938,37 +939,39 @@ def materialize_formula(
 ):
     """Parse + materialize a formula against a dataframe → SplitMatrix on
     ``device`` (None: the CUDA card)."""
-    device = resolve_device(device)
-    _, terms, intercept = parse_formula(formula, include_intercept)
+    with _trace.span("formula"):
+        device = resolve_device(device)
+        with _trace.span("formula.parse"):
+            _, terms, intercept = parse_formula(formula, include_intercept)
 
-    options = dict(
-        ensure_full_rank=ensure_full_rank,
-        na_action=na_action,
-        dtype=dtype,
-        sparse_threshold=sparse_threshold,
-        cat_threshold=cat_threshold,
-        interaction_separator=interaction_separator,
-        categorical_format=categorical_format,
-        cat_missing_method=cat_missing_method,
-        cat_missing_name=cat_missing_name,
-        intercept_name=intercept_name,
-        add_column_for_intercept=add_column_for_intercept,
-        cluster_by=cluster_by,
-        context=context,
-        device=device,
-    )
-    spec = FormulaModelSpec(
-        formula=formula, terms=terms, intercept=intercept, options=options
-    )
-    return _materialize(
-        terms,
-        intercept,
-        data,
-        state=spec.factor_states,
-        use_state=False,
-        spec=spec,
-        **options,
-    )
+        options = dict(
+            ensure_full_rank=ensure_full_rank,
+            na_action=na_action,
+            dtype=dtype,
+            sparse_threshold=sparse_threshold,
+            cat_threshold=cat_threshold,
+            interaction_separator=interaction_separator,
+            categorical_format=categorical_format,
+            cat_missing_method=cat_missing_method,
+            cat_missing_name=cat_missing_name,
+            intercept_name=intercept_name,
+            add_column_for_intercept=add_column_for_intercept,
+            cluster_by=cluster_by,
+            context=context,
+            device=device,
+        )
+        spec = FormulaModelSpec(
+            formula=formula, terms=terms, intercept=intercept, options=options
+        )
+        return _materialize(
+            terms,
+            intercept,
+            data,
+            state=spec.factor_states,
+            use_state=False,
+            spec=spec,
+            **options,
+        )
 
 
 def _materialize(
@@ -1003,230 +1006,232 @@ def _materialize(
             f"cluster_by must be 'none' or 'numerical_factors'; "
             f"got {cluster_by!r}."
         )
-    df = nw.from_native(data, eager_only=True)
-    evaluator = _Evaluator(df, context, state, use_state)
+    with _trace.span("formula.factors"):
+        df = nw.from_native(data, eager_only=True)
+        evaluator = _Evaluator(df, context, state, use_state)
 
-    # evaluate every distinct factor once
-    factor_slots: dict[str, Any] = {}
-    for term in terms:
-        for f in term.factors:
-            if f not in factor_slots:
-                factor_slots[f] = evaluator.eval_factor(
-                    f, cat_missing_method, cat_missing_name
-                )
-
-    n_rows = df.shape[0]
-
-    # na_action over evaluated factors
-    if na_action in ("drop", "raise"):
-        na_mask = np.zeros(n_rows, dtype=bool)
-        for slot in factor_slots.values():
-            if isinstance(slot, CategoricalSlot):
-                na_mask |= slot.codes == -1
-            elif isinstance(slot, MultiNumericSlot):
-                na_mask |= ~np.isfinite(slot.values).all(axis=1)
-            else:
-                na_mask |= ~np.isfinite(slot.values)
-        if na_mask.any():
-            if na_action == "raise":
-                raise ValueError("Missing values in formula data (na_action='raise').")
-            keep = ~na_mask
-            n_rows = int(keep.sum())
-            for name, slot in factor_slots.items():
-                if isinstance(slot, CategoricalSlot):
-                    slot.codes = slot.codes[keep]
-                    slot.multipliers = slot.multipliers[keep]
-                    if not use_state:
-                        # levels are defined by the post-drop data
-                        # (formulaic drops rows before encoding); restrict
-                        # to observed categories, preserving order
-                        observed = np.unique(slot.codes[slot.codes >= 0])
-                        if len(observed) < len(slot.categories):
-                            remap = np.full(len(slot.categories), -1, np.int64)
-                            remap[observed] = np.arange(len(observed))
-                            live = slot.codes >= 0
-                            slot.codes[live] = remap[slot.codes[live]]
-                            slot.categories = [
-                                slot.categories[i] for i in observed
-                            ]
-                            if name in state:
-                                state[name].categories = list(slot.categories)
-                else:
-                    slot.values = slot.values[keep]
-
-    # full-rank bookkeeping: the set of factor-subsets already spanned
-    spanned: set[frozenset] = set()
-    if intercept:
-        spanned.add(frozenset())
-
-    matrices = []
-    term_names = []
-
-    def _append(mat, term_label):
-        # blocks are appended in consecutive column order; SplitMatrix
-        # derives indices itself (handles nested splits from mixed-density
-        # categorical encodings)
-        matrices.append(mat)
-        term_names.extend([term_label] * mat.shape[1])
-
-    if intercept and add_column_for_intercept:
-        ones = NumericSlot(np.ones(n_rows), intercept_name)
-        # the intercept TERM is "1" (formulaic convention); only its
-        # column is named by intercept_name
-        _append(_numeric_to_matrix(ones, dtype, -1.0, device), "1")
-
-    def _encode_factor(f, mode):
-        """Encoded slot of factor ``f`` in ``mode`` 'full'/'reduced'/'asis'."""
-        slot = factor_slots[f]
-        if not isinstance(slot, CategoricalSlot):
-            return slot
-        reduced = mode == "reduced"
-        cspec = getattr(slot, "contrasts", None)
-        if cspec is not None and cspec.kind != "treatment":
-            return _contrast_coded_slot(
-                slot, f, cspec, reduced, categorical_format
-            )
-        base_idx = 0
-        if cspec is not None and cspec.base is not None:
-            cats = list(slot.categories)
-            scats = [str(c) for c in cats]
-            if cspec.base in cats:
-                base_idx = cats.index(cspec.base)
-            elif str(cspec.base) in scats:
-                base_idx = scats.index(str(cspec.base))
-            else:
-                raise ValueError(
-                    f"Base level {cspec.base!r} is not among the "
-                    f"levels of {f!r}: {cats}."
-                )
-        formatted = CategoricalSlot(
-            codes=slot.codes,
-            categories=[
-                categorical_format.format(name=f, category=c)
-                for c in slot.categories
-            ],
-            multipliers=slot.multipliers,
-            name=f,
-        )
-        formatted.spans_intercept = getattr(slot, "spans_intercept", True)
-        return _reduce_rank(formatted, base_idx) if reduced else formatted
-
-    ordered_terms = sorted(terms, key=lambda t: (t.degree,))
-    if cluster_by == "numerical_factors":
-        # group terms sharing the same numeric-factor set adjacently,
-        # clusters ordered by first appearance (the formulaic option)
-        def _numkey(t):
-            return frozenset(
-                f
-                for f in t.factors
-                if not isinstance(factor_slots[f], CategoricalSlot)
-            )
-
-        cluster_keys: list = []
-        for t in ordered_terms:
-            kk = _numkey(t)
-            if kk not in cluster_keys:
-                cluster_keys.append(kk)
-        ordered_terms = [
-            t for kk in cluster_keys for t in ordered_terms if _numkey(t) == kk
-        ]
-
-    for term in ordered_terms:
-        # Structurally-full-rank encoding: expand the term over the powerset
-        # of its intercept-spanning categorical factors (each contributes
-        # "absent" or "reduced"), drop pieces whose factor set an earlier
-        # term already spans, then greedily re-merge piece pairs
-        # P = Q ∪ {f⁻} into P with f unreduced — the minimal-piece-count
-        # simplification the reference inherits from formulaic's
-        # materializer (its vendored tests pin this exact behavior).
-        exp = [
-            f
-            for f in term.factors
-            if isinstance(factor_slots[f], CategoricalSlot)
-            and getattr(factor_slots[f], "spans_intercept", True)
-        ]
-        if ensure_full_rank:
-            fixed_key = frozenset(f for f in term.factors if f not in exp)
-            pieces = []  # dict: present exp factor -> "reduced"/"full"
-            for r in range(len(exp) + 1):
-                for subset in combinations(exp, r):
-                    key = fixed_key | frozenset(subset)
-                    if key in spanned:
-                        continue
-                    spanned.add(key)
-                    pieces.append(dict.fromkeys(subset, "reduced"))
-            # iterate to fixpoint: merging can enable further merges
-            # ((1 + A⁻)(1 + B⁻) collapses all the way to A:B full when
-            # nothing is pre-spanned — the reference's cat:cat - 1 case)
-            merged = sorted(pieces, key=len)
-            changed = True
-            while changed:
-                changed = False
-                for i, p in enumerate(merged):
-                    for j, q in enumerate(merged):
-                        extra = set(p) - set(q)
-                        if (
-                            i != j
-                            and len(p) == len(q) + 1
-                            and len(extra) == 1
-                            and all(p[g] == q[g] for g in q)
-                            and p[next(iter(extra))] == "reduced"
-                        ):
-                            newp = dict(p)
-                            newp[next(iter(extra))] = "full"
-                            merged[j] = newp
-                            del merged[i]
-                            changed = True
-                            break
-                    if changed:
-                        break
-            piece_list = sorted(merged, key=len)
-        else:
-            spanned.add(frozenset(term.factors))
-            piece_list = [dict.fromkeys(exp, "full")]
-
-        for piece in piece_list:
-            slots = []
+        # evaluate every distinct factor once
+        factor_slots: dict[str, Any] = {}
+        for term in terms:
             for f in term.factors:
-                if f in exp and f not in piece:
-                    continue
-                slots.append(_encode_factor(f, piece.get(f, "asis")))
-            if not slots:
-                continue  # constant piece — covered by the intercept column
-            combined = reduce(
-                lambda a, b: interact(a, b, interaction_separator), slots
-            )
-            members = (
-                combined.members
-                if isinstance(combined, BundleSlot)
-                else [combined]
-            )
-            for m in members:
-                if isinstance(m, NumericSlot):
-                    mat = _numeric_to_matrix(m, dtype, sparse_threshold, device)
-                elif isinstance(m, MultiNumericSlot):
-                    mat = _multi_to_matrix(m, dtype, sparse_threshold, device)
-                else:
-                    mat = _categorical_to_matrix(
-                        m, dtype, sparse_threshold, cat_threshold, device
+                if f not in factor_slots:
+                    factor_slots[f] = evaluator.eval_factor(
+                        f, cat_missing_method, cat_missing_name
                     )
-                if mat.shape[1] == 0:
-                    continue  # piece vanished (all levels dropped)
-                _append(mat, term.name(interaction_separator))
 
-    if not matrices:
-        # an empty formula ("0") materializes to an (n, 0) matrix — the
-        # contract the reference inherits from formulaic (vendored
-        # ``test_empty``), not an error
-        empty = DenseMatrix(np.empty((n_rows, 0), dtype=dtype), device=device)
-        empty.model_spec = spec
-        spec.column_names = ()
-        spec.term_names = ()
-        return empty
+        n_rows = df.shape[0]
 
-    result = SplitMatrix(matrices)
-    result.set_names(term_names, type="term")
-    result.model_spec = spec
-    spec.column_names = tuple(result.column_names)
-    spec.term_names = tuple(term_names)
-    return result
+        # na_action over evaluated factors
+        if na_action in ("drop", "raise"):
+            na_mask = np.zeros(n_rows, dtype=bool)
+            for slot in factor_slots.values():
+                if isinstance(slot, CategoricalSlot):
+                    na_mask |= slot.codes == -1
+                elif isinstance(slot, MultiNumericSlot):
+                    na_mask |= ~np.isfinite(slot.values).all(axis=1)
+                else:
+                    na_mask |= ~np.isfinite(slot.values)
+            if na_mask.any():
+                if na_action == "raise":
+                    raise ValueError("Missing values in formula data (na_action='raise').")
+                keep = ~na_mask
+                n_rows = int(keep.sum())
+                for name, slot in factor_slots.items():
+                    if isinstance(slot, CategoricalSlot):
+                        slot.codes = slot.codes[keep]
+                        slot.multipliers = slot.multipliers[keep]
+                        if not use_state:
+                            # levels are defined by the post-drop data
+                            # (formulaic drops rows before encoding); restrict
+                            # to observed categories, preserving order
+                            observed = np.unique(slot.codes[slot.codes >= 0])
+                            if len(observed) < len(slot.categories):
+                                remap = np.full(len(slot.categories), -1, np.int64)
+                                remap[observed] = np.arange(len(observed))
+                                live = slot.codes >= 0
+                                slot.codes[live] = remap[slot.codes[live]]
+                                slot.categories = [
+                                    slot.categories[i] for i in observed
+                                ]
+                                if name in state:
+                                    state[name].categories = list(slot.categories)
+                    else:
+                        slot.values = slot.values[keep]
+
+    with _trace.span("formula.matrices"):
+        # full-rank bookkeeping: the set of factor-subsets already spanned
+        spanned: set[frozenset] = set()
+        if intercept:
+            spanned.add(frozenset())
+
+        matrices = []
+        term_names = []
+
+        def _append(mat, term_label):
+            # blocks are appended in consecutive column order; SplitMatrix
+            # derives indices itself (handles nested splits from mixed-density
+            # categorical encodings)
+            matrices.append(mat)
+            term_names.extend([term_label] * mat.shape[1])
+
+        if intercept and add_column_for_intercept:
+            ones = NumericSlot(np.ones(n_rows), intercept_name)
+            # the intercept TERM is "1" (formulaic convention); only its
+            # column is named by intercept_name
+            _append(_numeric_to_matrix(ones, dtype, -1.0, device), "1")
+
+        def _encode_factor(f, mode):
+            """Encoded slot of factor ``f`` in ``mode`` 'full'/'reduced'/'asis'."""
+            slot = factor_slots[f]
+            if not isinstance(slot, CategoricalSlot):
+                return slot
+            reduced = mode == "reduced"
+            cspec = getattr(slot, "contrasts", None)
+            if cspec is not None and cspec.kind != "treatment":
+                return _contrast_coded_slot(
+                    slot, f, cspec, reduced, categorical_format
+                )
+            base_idx = 0
+            if cspec is not None and cspec.base is not None:
+                cats = list(slot.categories)
+                scats = [str(c) for c in cats]
+                if cspec.base in cats:
+                    base_idx = cats.index(cspec.base)
+                elif str(cspec.base) in scats:
+                    base_idx = scats.index(str(cspec.base))
+                else:
+                    raise ValueError(
+                        f"Base level {cspec.base!r} is not among the "
+                        f"levels of {f!r}: {cats}."
+                    )
+            formatted = CategoricalSlot(
+                codes=slot.codes,
+                categories=[
+                    categorical_format.format(name=f, category=c)
+                    for c in slot.categories
+                ],
+                multipliers=slot.multipliers,
+                name=f,
+            )
+            formatted.spans_intercept = getattr(slot, "spans_intercept", True)
+            return _reduce_rank(formatted, base_idx) if reduced else formatted
+
+        ordered_terms = sorted(terms, key=lambda t: (t.degree,))
+        if cluster_by == "numerical_factors":
+            # group terms sharing the same numeric-factor set adjacently,
+            # clusters ordered by first appearance (the formulaic option)
+            def _numkey(t):
+                return frozenset(
+                    f
+                    for f in t.factors
+                    if not isinstance(factor_slots[f], CategoricalSlot)
+                )
+
+            cluster_keys: list = []
+            for t in ordered_terms:
+                kk = _numkey(t)
+                if kk not in cluster_keys:
+                    cluster_keys.append(kk)
+            ordered_terms = [
+                t for kk in cluster_keys for t in ordered_terms if _numkey(t) == kk
+            ]
+
+        for term in ordered_terms:
+            # Structurally-full-rank encoding: expand the term over the powerset
+            # of its intercept-spanning categorical factors (each contributes
+            # "absent" or "reduced"), drop pieces whose factor set an earlier
+            # term already spans, then greedily re-merge piece pairs
+            # P = Q ∪ {f⁻} into P with f unreduced — the minimal-piece-count
+            # simplification the reference inherits from formulaic's
+            # materializer (its vendored tests pin this exact behavior).
+            exp = [
+                f
+                for f in term.factors
+                if isinstance(factor_slots[f], CategoricalSlot)
+                and getattr(factor_slots[f], "spans_intercept", True)
+            ]
+            if ensure_full_rank:
+                fixed_key = frozenset(f for f in term.factors if f not in exp)
+                pieces = []  # dict: present exp factor -> "reduced"/"full"
+                for r in range(len(exp) + 1):
+                    for subset in combinations(exp, r):
+                        key = fixed_key | frozenset(subset)
+                        if key in spanned:
+                            continue
+                        spanned.add(key)
+                        pieces.append(dict.fromkeys(subset, "reduced"))
+                # iterate to fixpoint: merging can enable further merges
+                # ((1 + A⁻)(1 + B⁻) collapses all the way to A:B full when
+                # nothing is pre-spanned — the reference's cat:cat - 1 case)
+                merged = sorted(pieces, key=len)
+                changed = True
+                while changed:
+                    changed = False
+                    for i, p in enumerate(merged):
+                        for j, q in enumerate(merged):
+                            extra = set(p) - set(q)
+                            if (
+                                i != j
+                                and len(p) == len(q) + 1
+                                and len(extra) == 1
+                                and all(p[g] == q[g] for g in q)
+                                and p[next(iter(extra))] == "reduced"
+                            ):
+                                newp = dict(p)
+                                newp[next(iter(extra))] = "full"
+                                merged[j] = newp
+                                del merged[i]
+                                changed = True
+                                break
+                        if changed:
+                            break
+                piece_list = sorted(merged, key=len)
+            else:
+                spanned.add(frozenset(term.factors))
+                piece_list = [dict.fromkeys(exp, "full")]
+
+            for piece in piece_list:
+                slots = []
+                for f in term.factors:
+                    if f in exp and f not in piece:
+                        continue
+                    slots.append(_encode_factor(f, piece.get(f, "asis")))
+                if not slots:
+                    continue  # constant piece — covered by the intercept column
+                combined = reduce(
+                    lambda a, b: interact(a, b, interaction_separator), slots
+                )
+                members = (
+                    combined.members
+                    if isinstance(combined, BundleSlot)
+                    else [combined]
+                )
+                for m in members:
+                    if isinstance(m, NumericSlot):
+                        mat = _numeric_to_matrix(m, dtype, sparse_threshold, device)
+                    elif isinstance(m, MultiNumericSlot):
+                        mat = _multi_to_matrix(m, dtype, sparse_threshold, device)
+                    else:
+                        mat = _categorical_to_matrix(
+                            m, dtype, sparse_threshold, cat_threshold, device
+                        )
+                    if mat.shape[1] == 0:
+                        continue  # piece vanished (all levels dropped)
+                    _append(mat, term.name(interaction_separator))
+
+        if not matrices:
+            # an empty formula ("0") materializes to an (n, 0) matrix — the
+            # contract the reference inherits from formulaic (vendored
+            # ``test_empty``), not an error
+            empty = DenseMatrix(np.empty((n_rows, 0), dtype=dtype), device=device)
+            empty.model_spec = spec
+            spec.column_names = ()
+            spec.term_names = ()
+            return empty
+
+        result = SplitMatrix(matrices)
+        result.set_names(term_names, type="term")
+        result.model_spec = spec
+        spec.column_names = tuple(result.column_names)
+        spec.term_names = tuple(term_names)
+        return result

@@ -28,6 +28,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from . import _trace
 from ._config import DEFAULT_DTYPE
 from .utils.arrays import to_tensor
 
@@ -180,53 +181,65 @@ def irls_step(
     (``Xᵀ diag(w) X``, the CUDA kernel on a GPU) and runs CG on the (k, k)
     matrix; otherwise the Hessian-vector product is two matvecs.
     """
-    mv, tmv = _make_mv_tmv(X)
+    with _trace.span("step"):
+        _trace.count("steps")
+        mv, tmv = _make_mv_tmv(X)
+        with _trace.span("step.matvec"):
+            eta = mv(beta)
+            if offset is not None:
+                eta = eta + offset
+        with _trace.span("step.family"):
+            mu, w_irls, resid = _family_terms(family, eta, y)
+            w = sample_weight * w_irls
+        with _trace.span("step.tmv"):
+            # penalty_scale (e.g. 0 on the intercept) keeps chosen coords unpenalized
+            ps = torch.ones_like(beta) if penalty_scale is None else penalty_scale
+            grad = tmv(sample_weight * resid) - l2 * ps * beta
+        f32_inner = inner_precision == "float32" and X.dtype == torch.float64
 
-    eta = mv(beta)
-    if offset is not None:
-        eta = eta + offset
-    mu, w_irls, resid = _family_terms(family, eta, y)
-    w = sample_weight * w_irls
-    # penalty_scale (e.g. 0 on the intercept) keeps chosen coords unpenalized
-    ps = torch.ones_like(beta) if penalty_scale is None else penalty_scale
-    grad = tmv(sample_weight * resid) - l2 * ps * beta
-    f32_inner = inner_precision == "float32" and X.dtype == torch.float64
+        if getattr(X, "supports_sandwich", False):
+            # explicit-Hessian path: ONE sandwich per step, then CG on (k, k)
+            if f32_inner:
+                with _trace.span("step.scale"):
+                    X32 = X.astype_float(torch.float32)
+                    s = _f32_hessian_scale(X32, w)
+                with _trace.span("step.sandwich"):
+                    H = X32.sandwich((w * s).to(torch.float32))
+                    if l2:
+                        H = H + torch.diag((l2 * s * ps).to(torch.float32))
+                with _trace.span("step.cg"):
+                    delta = _cg_solve(lambda v: H @ v, (grad * s).to(torch.float32), n_cg)
+                    return beta + delta.to(beta.dtype)
+            with _trace.span("step.sandwich"):
+                H = X.sandwich(w)
+                if l2:
+                    H = H + l2 * torch.diag(ps)
+            with _trace.span("step.cg"):
+                delta = _cg_solve(lambda v: H @ v, grad, n_cg)
+                return beta + delta
 
-    if getattr(X, "supports_sandwich", False):
-        # explicit-Hessian path: ONE sandwich per step, then CG on (k, k)
         if f32_inner:
-            X32 = X.astype_float(torch.float32)
-            s = _f32_hessian_scale(X32, w)
-            H = X32.sandwich((w * s).to(torch.float32))
-            if l2:
-                H = H + torch.diag((l2 * s * ps).to(torch.float32))
-            delta = _cg_solve(lambda v: H @ v, (grad * s).to(torch.float32), n_cg)
-            return beta + delta.to(beta.dtype)
-        H = X.sandwich(w)
-        if l2:
-            H = H + l2 * torch.diag(ps)
-        delta = _cg_solve(lambda v: H @ v, grad, n_cg)
-        return beta + delta
+            with _trace.span("step.scale"):
+                if torch.is_tensor(X):
+                    X32 = X.to(torch.float32)
+                else:
+                    X32 = X.astype_float(torch.float32)
+                w32 = w.to(torch.float32)
+                ps32 = ps.to(torch.float32)
 
-    if f32_inner:
-        if torch.is_tensor(X):
-            X32 = X.to(torch.float32)
-        else:
-            X32 = X.astype_float(torch.float32)
-        w32 = w.to(torch.float32)
-        ps32 = ps.to(torch.float32)
+            def hvp(v):
+                return X32.T @ (w32 * (X32 @ v)) + l2 * ps32 * v
+
+            with _trace.span("step.cg"):
+                delta = _cg_solve(hvp, grad.to(torch.float32), n_cg)
+                return beta + delta.to(beta.dtype)
 
         def hvp(v):
-            return X32.T @ (w32 * (X32 @ v)) + l2 * ps32 * v
+            return tmv(w * mv(v)) + l2 * ps * v
 
-        delta = _cg_solve(hvp, grad.to(torch.float32), n_cg)
-        return beta + delta.to(beta.dtype)
-
-    def hvp(v):
-        return tmv(w * mv(v)) + l2 * ps * v
-
-    delta = _cg_solve(hvp, grad, n_cg)
-    return beta + delta
+        with _trace.span("step.cg"):
+            delta = _cg_solve(hvp, grad, n_cg)
+            return beta + delta
 
 
 def fista_epoch(
@@ -263,14 +276,15 @@ def fista_epoch(
     def soft(b, thresh):
         return torch.sign(b) * torch.clamp(torch.abs(b) - thresh, min=0.0)
 
-    b, z = beta, beta
-    t = torch.tensor(1.0, dtype=beta.dtype, device=beta.device)
-    for _ in range(n_steps):
-        b_new = soft(z - step * grad(z), step * l1 * ps)
-        t_new = 0.5 * (1 + torch.sqrt(1 + 4 * t * t))
-        z = b_new + ((t - 1) / t_new) * (b_new - b)
-        b, t = b_new, t_new
-    return b
+    with _trace.span("fit.epoch"):
+        b, z = beta, beta
+        t = torch.tensor(1.0, dtype=beta.dtype, device=beta.device)
+        for _ in range(n_steps):
+            b_new = soft(z - step * grad(z), step * l1 * ps)
+            t_new = 0.5 * (1 + torch.sqrt(1 + 4 * t * t))
+            z = b_new + ((t - 1) / t_new) * (b_new - b)
+            b, t = b_new, t_new
+        return b
 
 
 def _power_iteration_lipschitz(mv, tmv, w, k, dtype, device, n_iter=12):
@@ -327,81 +341,84 @@ def fit_glm(
     from .models.standardized import StandardizedMatrix
     from .parallel.design import DeviceDesign
 
-    if _is_scipy_sparse(X):
-        X = as_tabmat(X, device=device)
-    if isinstance(X, (MatrixBase, StandardizedMatrix)):
-        X = DeviceDesign.from_matrix(X)
-    if not isinstance(X, DeviceDesign):
-        X = to_tensor(X, device=device)
-        if not X.is_floating_point():
-            X = X.to(DEFAULT_DTYPE)
-    beta = torch.zeros(X.shape[1], dtype=X.dtype, device=X.device)
-    y = _as_float(y, beta)
-    if sample_weight is None:
-        # a sharded design's rows on this rank
-        n_rows = X.n_local if isinstance(X, DeviceDesign) else X.shape[0]
-        sample_weight = torch.ones(n_rows, dtype=X.dtype, device=X.device)
-    else:
-        sample_weight = _as_float(sample_weight, beta)
+    with _trace.span("fit"):
+        if _is_scipy_sparse(X):
+            X = as_tabmat(X, device=device)
+        if isinstance(X, (MatrixBase, StandardizedMatrix)):
+            X = DeviceDesign.from_matrix(X)
+        if not isinstance(X, DeviceDesign):
+            X = to_tensor(X, device=device)
+            if not X.is_floating_point():
+                X = X.to(DEFAULT_DTYPE)
+        beta = torch.zeros(X.shape[1], dtype=X.dtype, device=X.device)
+        y = _as_float(y, beta)
+        if sample_weight is None:
+            # a sharded design's rows on this rank
+            n_rows = X.n_local if isinstance(X, DeviceDesign) else X.shape[0]
+            sample_weight = torch.ones(n_rows, dtype=X.dtype, device=X.device)
+        else:
+            sample_weight = _as_float(sample_weight, beta)
 
-    if penalty_scale is not None:
-        penalty_scale = to_tensor(penalty_scale, device=beta.device, dtype=beta.dtype)
-    if P1 is not None or P2 is not None:
-        # glum-style per-feature multipliers fold into penalty_scale; when
-        # P1 and P2 differ the l1/l2 terms need separate scales — supported
-        # for the common case P1 == P2 (or only one penalty active)
-        base = penalty_scale if penalty_scale is not None else torch.ones_like(beta)
-        if P1 is not None and P2 is not None and not np.array_equal(
-            np.asarray(P1), np.asarray(P2)
-        ) and l1 > 0 and l2 > 0:
-            raise NotImplementedError(
-                "distinct P1 and P2 with both l1 and l2 active are not yet supported"
-            )
-        pf = P1 if P1 is not None else P2
-        penalty_scale = base * to_tensor(pf, device=beta.device, dtype=beta.dtype)
-    if offset is not None:
-        offset = to_tensor(offset, device=beta.device, dtype=beta.dtype)
+        if penalty_scale is not None:
+            penalty_scale = to_tensor(penalty_scale, device=beta.device, dtype=beta.dtype)
+        if P1 is not None or P2 is not None:
+            # glum-style per-feature multipliers fold into penalty_scale; when
+            # P1 and P2 differ the l1/l2 terms need separate scales — supported
+            # for the common case P1 == P2 (or only one penalty active)
+            base = penalty_scale if penalty_scale is not None else torch.ones_like(beta)
+            if P1 is not None and P2 is not None and not np.array_equal(
+                np.asarray(P1), np.asarray(P2)
+            ) and l1 > 0 and l2 > 0:
+                raise NotImplementedError(
+                    "distinct P1 and P2 with both l1 and l2 active are not yet supported"
+                )
+            pf = P1 if P1 is not None else P2
+            penalty_scale = base * to_tensor(pf, device=beta.device, dtype=beta.dtype)
+        if offset is not None:
+            offset = to_tensor(offset, device=beta.device, dtype=beta.dtype)
 
-    if l1 > 0:
-        # elastic net → FISTA epochs (IRLS can't handle the nonsmooth term)
-        mv, tmv = _make_mv_tmv(X)
-        # Lipschitz bound of the smooth part: the IRLS weight is bounded for
-        # gaussian/logistic/gamma; poisson (w=mu), inverse_gaussian (w=1/mu)
-        # and tweedie (w=mu^{2-p}) are unbounded in mu, so estimate at w=1
-        # and add step slack below
-        family_base, _ = _parse_family(family)
-        caps = {"gaussian": 1.0, "logistic": 0.25, "gamma": 1.0}
-        w_cap = caps.get(family_base)
-        w_est = sample_weight * (w_cap if w_cap is not None else 1.0)
-        L = _power_iteration_lipschitz(
-            mv, tmv, w_est, X.shape[1], beta.dtype, beta.device
-        ) + l2
-        if w_cap is None:
-            L *= 4.0  # slack for the mu-dependent weight near the optimum
-        step = 0.95 / max(L, 1e-30)
+        if l1 > 0:
+            # elastic net → FISTA epochs (IRLS can't handle the nonsmooth term)
+            mv, tmv = _make_mv_tmv(X)
+            # Lipschitz bound of the smooth part: the IRLS weight is bounded for
+            # gaussian/logistic/gamma; poisson (w=mu), inverse_gaussian (w=1/mu)
+            # and tweedie (w=mu^{2-p}) are unbounded in mu, so estimate at w=1
+            # and add step slack below
+            family_base, _ = _parse_family(family)
+            caps = {"gaussian": 1.0, "logistic": 0.25, "gamma": 1.0}
+            w_cap = caps.get(family_base)
+            w_est = sample_weight * (w_cap if w_cap is not None else 1.0)
+            L = _power_iteration_lipschitz(
+                mv, tmv, w_est, X.shape[1], beta.dtype, beta.device
+            ) + l2
+            if w_cap is None:
+                L *= 4.0  # slack for the mu-dependent weight near the optimum
+            step = 0.95 / max(L, 1e-30)
+            for it in range(max_iter):
+                new_beta = fista_epoch(
+                    X, y, sample_weight, beta, step,
+                    family=family, n_steps=50, l1=l1, l2=l2,
+                    penalty_scale=penalty_scale, offset=offset,
+                )
+                with _trace.span("fit.converge"):
+                    delta = float(torch.max(torch.abs(new_beta - beta)))
+                beta = new_beta
+                if delta < tol:
+                    return beta, it + 1
+            return beta, max_iter
+
         for it in range(max_iter):
-            new_beta = fista_epoch(
-                X, y, sample_weight, beta, step,
-                family=family, n_steps=50, l1=l1, l2=l2,
-                penalty_scale=penalty_scale, offset=offset,
+            new_beta = irls_step(
+                X, y, sample_weight, beta, family=family, n_cg=n_cg, l2=l2,
+                inner_precision=inner_precision, penalty_scale=penalty_scale,
+                offset=offset,
             )
-            delta = float(torch.max(torch.abs(new_beta - beta)))
+            with _trace.span("fit.converge"):
+                delta = float(torch.max(torch.abs(new_beta - beta)))
             beta = new_beta
             if delta < tol:
                 return beta, it + 1
         return beta, max_iter
-
-    for it in range(max_iter):
-        new_beta = irls_step(
-            X, y, sample_weight, beta, family=family, n_cg=n_cg, l2=l2,
-            inner_precision=inner_precision, penalty_scale=penalty_scale,
-            offset=offset,
-        )
-        delta = float(torch.max(torch.abs(new_beta - beta)))
-        beta = new_beta
-        if delta < tol:
-            return beta, it + 1
-    return beta, max_iter
 
 
 def _is_scipy_sparse(X) -> bool:

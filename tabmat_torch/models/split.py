@@ -22,6 +22,7 @@ import numpy as np
 import torch
 from scipy import sparse as sps
 
+from .. import _trace
 from ..ops.diag import DiagonalResult
 from ..utils import (
     as_numpy_dtype,
@@ -330,18 +331,19 @@ class SplitMatrix(MatrixBase):
         d_in = d if hasattr(d, "dtype") else np.asarray(d)
         check_sandwich_compatible(self, d_in)
         if self._design_operand(d_in) and self._device_sandwich_ok():
-            design = self._get_device_design()
-            mask = rows_to_mask(
-                None if rows is None else set_up_rows_or_cols(rows, self.shape[0]),
-                self.shape[0], d_in.dtype, design.device,
-            )
-            w = d_in.to(design.device)
-            H = design.sandwich(w if mask is None else w * mask)
-            if not is_identity_index(cols, self.shape[1]):
-                c = torch.as_tensor(set_up_rows_or_cols(cols, self.shape[1], np.int64),
-                                    device=H.device)
-                H = H[c][:, c]
-            return H.to(d_in.device)
+            with _trace.span("api.sandwich"):
+                design = self._get_device_design()
+                mask = rows_to_mask(
+                    None if rows is None else set_up_rows_or_cols(rows, self.shape[0]),
+                    self.shape[0], d_in.dtype, design.device,
+                )
+                w = d_in.to(design.device)
+                H = design.sandwich(w if mask is None else w * mask)
+                if not is_identity_index(cols, self.shape[1]):
+                    c = torch.as_tensor(set_up_rows_or_cols(cols, self.shape[1], np.int64),
+                                        device=H.device)
+                    H = H[c][:, c]
+                return H.to(d_in.device)
 
         uniq, inverse = _unique_cols(cols, self.shape[1])
         if inverse is not None:
@@ -378,11 +380,12 @@ class SplitMatrix(MatrixBase):
 
         cols = _matvec_cols(cols, self.shape[1])
         if self._design_operand(v_in) and out is None:
-            # column restriction ≡ masking v (matvec sums over columns)
-            ve = v.to(self.device)
-            if cols is not None:
-                ve = ve * rows_to_mask(cols, self.shape[1], ve.dtype, ve.device)
-            return self._get_device_design().matvec(ve).to(v_in.device)
+            with _trace.span("api.matvec"):
+                # column restriction ≡ masking v (matvec sums over columns)
+                ve = v.to(self.device)
+                if cols is not None:
+                    ve = ve * rows_to_mask(cols, self.shape[1], ve.dtype, ve.device)
+                return self._get_device_design().matvec(ve).to(v_in.device)
 
         _, subset_cols, _ = self._split_col_subsets(cols)
         out_dtype = np.result_type(self.dtype, as_numpy_dtype(v.dtype))
@@ -420,15 +423,16 @@ class SplitMatrix(MatrixBase):
         check_transpose_matvec_out_shape(self, out)
 
         if self._design_operand(v_in) and out is None:
-            ve = v.to(self.device)
-            if rows is not None and len(rows) != self.shape[0]:
-                ve = ve * rows_to_mask(set_up_rows_or_cols(rows, self.shape[0]),
-                                       self.shape[0], ve.dtype, ve.device)
-            res = self._get_device_design().transpose_matvec(ve)
-            if cols is not None and not is_identity_index(cols, self.shape[1]):
-                res = res[torch.as_tensor(set_up_rows_or_cols(cols, self.shape[1], np.int64),
-                                          device=res.device)]
-            return res.to(v_in.device)
+            with _trace.span("api.tmv"):
+                ve = v.to(self.device)
+                if rows is not None and len(rows) != self.shape[0]:
+                    ve = ve * rows_to_mask(set_up_rows_or_cols(rows, self.shape[0]),
+                                           self.shape[0], ve.dtype, ve.device)
+                res = self._get_device_design().transpose_matvec(ve)
+                if cols is not None and not is_identity_index(cols, self.shape[1]):
+                    res = res[torch.as_tensor(
+                        set_up_rows_or_cols(cols, self.shape[1], np.int64), device=res.device)]
+                return res.to(v_in.device)
 
         uniq, inverse = _unique_cols(cols, self.shape[1])
         if inverse is not None:

@@ -21,7 +21,7 @@ the port sums each segment directly, so no error grows with the prefix.
 import numpy as np
 import torch
 
-from .. import _native
+from .. import _native, _trace
 from . import segsum_kernel
 
 
@@ -60,15 +60,17 @@ def build_plan(keys: np.ndarray, num_segments: int, device) -> SegmentPlan:
 
     Keys outside ``[0, num_segments)`` fall in no segment.
     """
-    keys = np.asarray(keys)
-    perm, bounds = _native.counting_argsort(keys, num_segments)
-    perm = perm[bounds[0] : bounds[-1]]
-    bounds = bounds - bounds[0]
-    return SegmentPlan(
-        torch.as_tensor(perm, device=device),
-        torch.as_tensor(bounds, device=device),
-        len(keys),
-    )
+    with _trace.span("plan.build"):
+        _trace.count("plans_built")
+        keys = np.asarray(keys)
+        perm, bounds = _native.counting_argsort(keys, num_segments)
+        perm = perm[bounds[0] : bounds[-1]]
+        bounds = bounds - bounds[0]
+        return SegmentPlan(
+            torch.as_tensor(perm, device=device),
+            torch.as_tensor(bounds, device=device),
+            len(keys),
+        )
 
 
 def stack(plans) -> SegmentPlan:

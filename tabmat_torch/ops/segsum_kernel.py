@@ -46,6 +46,8 @@ import ctypes
 
 import torch
 
+from .. import _trace
+
 # Launch counts by instantiation: each rises by one where that kernel is
 # launched, nowhere else.
 launches = {"segsum<double>": 0, "segsum<float>": 0,
@@ -348,26 +350,31 @@ def _call(lib, plan, device, T: str, size: int, m: int):
     key = ("segsum_call", T, m, TILE_ROWS)
     call = plan.tables.get(key)
     if call is None:
-        W, E, n = plan.num_segments, plan.perm.shape[0], plan.n_rows
-        sms = _sm_count(device)
-        per_row = _per_row(plan)
-        route, rows, G = choose_route(
-            W, m, E, n, per_row, size, sms,
-            lambda r, g: _blocks(lib, f"segsum<{T}>", device, n, r, g, W, max_tile(per_row, r)))
-        name = f"segsum<{T}>" if route == "tiles" else f"segsum_slots<{T}>"
-        mt = max_tile(per_row, rows)
-        blocks = _blocks(lib, name, device, n, rows, G, W, mt)
-        layout = _layout(plan, route, rows)
-        shape = (n, rows, -(-n // rows), m, G, W, blocks, tiles_per_block(n, rows, sms), mt)
-        if route == "tiles":
-            tables = (layout["tile_off"], layout["words"])
-            scratch = -(-m // G) * blocks * W * G  # the blocks' partials
-        else:
-            tables = (layout["tile_off"], layout["rows"], layout["slots"], layout["slot_bounds"])
-            scratch = layout["n_slots"] * m  # the slots
-        call = (name, getattr(lib, _SYMBOLS[name]), tuple(t.data_ptr() for t in tables) + shape,
-                scratch)
-        plan.tables[key] = call
+        with _trace.span("tables.build"):
+            _trace.count("tables_built")
+            W, E, n = plan.num_segments, plan.perm.shape[0], plan.n_rows
+            sms = _sm_count(device)
+            per_row = _per_row(plan)
+            route, rows, G = choose_route(
+                W, m, E, n, per_row, size, sms,
+                lambda r, g: _blocks(lib, f"segsum<{T}>", device, n, r, g, W,
+                                     max_tile(per_row, r)))
+            name = f"segsum<{T}>" if route == "tiles" else f"segsum_slots<{T}>"
+            mt = max_tile(per_row, rows)
+            blocks = _blocks(lib, name, device, n, rows, G, W, mt)
+            layout = _layout(plan, route, rows)
+            shape = (n, rows, -(-n // rows), m, G, W, blocks, tiles_per_block(n, rows, sms),
+                     mt)
+            if route == "tiles":
+                tables = (layout["tile_off"], layout["words"])
+                scratch = -(-m // G) * blocks * W * G  # the blocks' partials
+            else:
+                tables = (layout["tile_off"], layout["rows"], layout["slots"],
+                          layout["slot_bounds"])
+                scratch = layout["n_slots"] * m  # the slots
+            call = (name, getattr(lib, _SYMBOLS[name]),
+                    tuple(t.data_ptr() for t in tables) + shape, scratch)
+            plan.tables[key] = call
     return call
 
 

@@ -39,6 +39,8 @@ import ctypes
 
 import torch
 
+from .. import _trace
+
 # Launch counts by instantiation: each rises by one where that kernel is
 # launched, nowhere else.
 launches = {"spmv<double>": 0, "spmv<float>": 0, "spmv<double,int64>": 0,
@@ -165,12 +167,14 @@ def _tile_starts(lib, plan, W: int, E: int, m: int, stream) -> torch.Tensor:
     if starts is None:
         from .. import _build
 
-        tiles = lib.tabmat_spmv_tiles(W, E, m)
-        starts = torch.empty(tiles + 1, dtype=torch.int32, device=plan.perm.device)
-        err = getattr(lib, _STARTS[plan.bounds.dtype])(plan.bounds.data_ptr(), W, E, m,
-                                                      starts.data_ptr(), stream)
-        _build.raise_on(lib, err, "spmv.cu tile starts")
-        plan.tables[key] = starts
+        with _trace.span("tables.build"):
+            _trace.count("tables_built")
+            tiles = lib.tabmat_spmv_tiles(W, E, m)
+            starts = torch.empty(tiles + 1, dtype=torch.int32, device=plan.perm.device)
+            err = getattr(lib, _STARTS[plan.bounds.dtype])(plan.bounds.data_ptr(), W, E, m,
+                                                          starts.data_ptr(), stream)
+            _build.raise_on(lib, err, "spmv.cu tile starts")
+            plan.tables[key] = starts
     return starts
 
 

@@ -31,6 +31,7 @@ all nonzeros or rows (``design.py:493-505, 538-551, 661-664, 775-809``).
 import numpy as np
 import torch
 
+from .. import _trace
 from .._config import cache_charge
 from ..models.categorical import CategoricalMatrix
 from ..models.sparse import SparseMatrix
@@ -166,9 +167,9 @@ class _CatBlock:
     def tmv(self, r):
         return self.plan.sum(r)
 
-    def sandwich(self, w, wX):
-        """The cat rows of the Hessian: ``(cat×dense cells (width, kd) or
-        None, cat×cat block (width, width))``."""
+    def sandwich(self, w):
+        """The cat×cat block of the Hessian (width, width): the diagonals
+        and the cross cells."""
         H = torch.zeros((self.width, self.width), dtype=w.dtype, device=w.device)
         H.diagonal().copy_(self.plan.sum(w))
         offsets = np.concatenate([[0], np.cumsum(self.widths)])
@@ -178,8 +179,7 @@ class _CatBlock:
             rb = slice(offsets[b], offsets[b + 1])
             H[ra, rb] = cell
             H[rb, ra] = cell.T
-        cross_dense = None if wX is None else self.plan.sum2d(wX)
-        return cross_dense, H
+        return H
 
 
 class _SparseBlock:
@@ -300,30 +300,31 @@ class DeviceDesign:
             raise TypeError(f"Cannot convert {type(mat).__name__} to a DeviceDesign")
         n, k = mat.shape
         dtype = as_torch_dtype(mat.dtype)
-        if isinstance(mat, DenseMatrix):
-            return cls([_DenseBlock(mat.unpack(), np.arange(k))], n, k, dtype)
-        if isinstance(mat, SparseMatrix):
-            return cls([_SparseBlock(mat, np.arange(k))], n, k, dtype)
-        if isinstance(mat, CategoricalMatrix):
-            return cls([_CatBlock([mat], np.arange(k))], n, k, dtype)
-        # a SplitMatrix: at most one dense and one sparse block (fused), and
+        # at most one dense and one sparse block (a SplitMatrix's fused), and
         # any number of categoricals, stacked into one block
-        blocks, cats, cat_positions = [], [], []
-        for m, idx in zip(mat.matrices, mat.indices):
-            if isinstance(m, DenseMatrix):
-                blocks.append(_DenseBlock(m.unpack(), idx))
-            elif isinstance(m, SparseMatrix):
-                blocks.append(_SparseBlock(m, idx))
-            else:
-                cats.append(m)
-                cat_positions.append(idx)
-        if cats:
-            cat = _CatBlock(cats, np.concatenate(cat_positions))
-            blocks.append(cat)
-            for b in blocks:
-                if b.kind == "sparse":
-                    b.attach_cat_plan(cat)
-        return cls(blocks, n, k, dtype)
+        parts = (zip(mat.matrices, mat.indices) if isinstance(mat, SplitMatrix)
+                 else [(mat, np.arange(k))])
+        with _trace.span("from_matrix"):
+            blocks, cats, cat_positions = [], [], []
+            for m, idx in parts:
+                if isinstance(m, DenseMatrix):
+                    with _trace.span("from_matrix.dense"):
+                        blocks.append(_DenseBlock(m.unpack(), idx))
+                elif isinstance(m, SparseMatrix):
+                    with _trace.span("from_matrix.sparse"):
+                        blocks.append(_SparseBlock(m, idx))
+                else:
+                    cats.append(m)
+                    cat_positions.append(idx)
+            if cats:
+                with _trace.span("from_matrix.cat"):
+                    cat = _CatBlock(cats, np.concatenate(cat_positions))
+                blocks.append(cat)
+                for b in blocks:
+                    if b.kind == "sparse":
+                        with _trace.span("from_matrix.sparse"):
+                            b.attach_cat_plan(cat)
+            return cls(blocks, n, k, dtype)
 
     def shard(self, mesh, rows="dp", dense_cols=None) -> "ShardedDesign":
         """This rank's row slab of the design on the mesh's device — the user
@@ -388,27 +389,29 @@ class DeviceDesign:
 
     def matvec(self, v: torch.Tensor) -> torch.Tensor:
         """``X @ v``."""
-        v_eff = v * self.mult if self.mult is not None else v
-        v_blocks = v_eff if self._identity_order else v_eff[self._gather_v]
-        out, off = None, 0
-        for b in self.blocks:
-            part = b.matvec(v_blocks[off : off + b.width])
-            out = part if out is None else out + part
-            off += b.width
-        if self.shift is not None:
-            out = out + torch.dot(self.shift, v)
-        return out
+        with _trace.span("design.matvec"):
+            v_eff = v * self.mult if self.mult is not None else v
+            v_blocks = v_eff if self._identity_order else v_eff[self._gather_v]
+            out, off = None, 0
+            for b in self.blocks:
+                part = b.matvec(v_blocks[off : off + b.width])
+                out = part if out is None else out + part
+                off += b.width
+            if self.shift is not None:
+                out = out + torch.dot(self.shift, v)
+            return out
 
     def transpose_matvec(self, r: torch.Tensor) -> torch.Tensor:
         """``X.T @ r``."""
-        segs = [b.tmv(r) for b in self.blocks]
-        flat = segs[0] if len(segs) == 1 else torch.cat(segs)
-        out = flat if self._identity_order else flat[self._index_map]
-        if self.mult is not None:
-            out = out * self.mult
-        if self.shift is not None:
-            out = out + self.shift * torch.sum(r)
-        return out
+        with _trace.span("design.tmv"):
+            segs = [b.tmv(r) for b in self.blocks]
+            flat = segs[0] if len(segs) == 1 else torch.cat(segs)
+            out = flat if self._identity_order else flat[self._index_map]
+            if self.mult is not None:
+                out = out * self.mult
+            if self.shift is not None:
+                out = out + self.shift * torch.sum(r)
+            return out
 
     @property
     def supports_sandwich(self) -> bool:
@@ -435,32 +438,42 @@ class DeviceDesign:
         sparse cells through the sparse segment product.  Each off-diagonal
         cell is computed once and mirrored, so the result is exactly
         symmetric where each diagonal cell is."""
-        dense, sparse, cat = (self._block(kind) for kind in ("dense", "sparse", "cat"))
-        X = None if dense is None else dense.full()
-        cells = {}
-        if dense is not None:
-            cells["dense", "dense"] = dense_ops.sandwich(X, w)
-        if sparse is not None:
-            cells["sparse", "sparse"] = sparse.diag(w)
+        with _trace.span("design.sandwich"):
+            dense, sparse, cat = (self._block(kind) for kind in ("dense", "sparse", "cat"))
+            X = None if dense is None else dense.full()
+            cells = {}
+            # the cells with the longest kernels are queued first: the host
+            # is the slower side, and they run while it queues the rest
             if dense is not None:
-                cells["sparse", "dense"] = sparse.cross_dense(X, w)
-        if cat is not None:
-            wX = None if dense is None else (X * w[:, None]).contiguous()
-            cells["cat", "dense"], cells["cat", "cat"] = cat.sandwich(w, wX)
+                with _trace.span("sandwich.dense"):
+                    cells["dense", "dense"] = dense_ops.sandwich(X, w)
             if sparse is not None:
-                cells["cat", "sparse"] = sparse.cross_cat(w, cat.width)
+                with _trace.span("sandwich.sparse"):
+                    cells["sparse", "sparse"] = sparse.diag(w)
+                    if dense is not None:
+                        cells["sparse", "dense"] = sparse.cross_dense(X, w)
+                    if cat is not None:
+                        cells["cat", "sparse"] = sparse.cross_cat(w, cat.width)
+            if cat is not None:
+                if dense is not None:
+                    with _trace.span("sandwich.cat_dense"):
+                        cells["cat", "dense"] = cat.plan.sum2d((X * w[:, None]).contiguous())
+                with _trace.span("sandwich.cat"):
+                    cells["cat", "cat"] = cat.sandwich(w)
 
-        def cell(a, b):
-            return cells[a, b] if (a, b) in cells else cells[b, a].T
+            def cell(a, b):
+                return cells[a, b] if (a, b) in cells else cells[b, a].T
 
-        kinds = [b.kind for b in self.blocks]
-        if len(kinds) == 1:
-            H = cells[kinds[0], kinds[0]]
-        else:
-            H = torch.cat([torch.cat([cell(a, b) for b in kinds], dim=1) for a in kinds])
-        if self._identity_order:
-            return H
-        return H[self._index_map][:, self._index_map]
+            with _trace.span("sandwich.assemble"):
+                kinds = [b.kind for b in self.blocks]
+                if len(kinds) == 1:
+                    H = cells[kinds[0], kinds[0]]
+                else:
+                    H = torch.cat([torch.cat([cell(a, b) for b in kinds], dim=1)
+                                   for a in kinds])
+                if self._identity_order:
+                    return H
+                return H[self._index_map][:, self._index_map]
 
     def absmax_bound(self, w: torch.Tensor) -> torch.Tensor:
         """A float64 bound of ``max_ij |x_ij| · |w_i|``, on the device.

@@ -258,17 +258,6 @@ def test_main_refuses_without_cuda(monkeypatch, capsys):
     assert '"ok"' not in capsys.readouterr().out
 
 
-def test_profile_tool_refuses_without_cuda(monkeypatch, capsys):
-    spec = importlib.util.spec_from_file_location(
-        "profile_irls_step", ROOT / "tools" / "profile_irls_step.py")
-    tool = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(tool)
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    monkeypatch.setattr(sys, "argv", ["profile_irls_step.py"])
-    assert tool.main() != 0
-    assert capsys.readouterr().out == ""
-
-
 def test_time_segsum_refuses_without_cuda(monkeypatch, capsys):
     spec = importlib.util.spec_from_file_location("time_segsum",
                                                   ROOT / "tools" / "time_segsum.py")
