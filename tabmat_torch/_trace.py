@@ -13,11 +13,12 @@ together.  While a ``torch.profiler`` session is active, a span also opens
 ``record_function("tabmat_torch/<name>")``, which puts it in the profiler's
 trace beside the kernels it launches, on the trace's clock.
 
-Counters: ``plans_built`` (segment plans, ``ops/segments.py``),
-``tables_built`` (kernel tables built at a plan's first call on the card,
-``ops/segsum_kernel.py`` and ``ops/spmv_kernel.py``) and ``steps`` (Newton
-steps, ``glm.py``).  Kernel launches are counted by the wrappers'
-``launches`` dicts.
+Counters: ``plans_built`` (segment plans, ``ops/segments.py``) and, of
+them, ``plans_from_device_keys`` (built from keys already on the plan's
+device, with no upload), ``tables_built`` (kernel tables built at a plan's
+first call on the card, ``ops/segsum_kernel.py`` and ``ops/spmv_kernel.py``)
+and ``steps`` (Newton steps, ``glm.py``).  Kernel launches are counted by the
+wrappers' ``launches`` dicts.
 
 Spans are ``with`` blocks inside function bodies, never wrappers: a frame
 more would move what ``from_formula(context=<int>)`` reads.

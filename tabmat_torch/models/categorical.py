@@ -8,8 +8,8 @@ Port of ``tabmat_tpu/models/categorical.py``.  The math:
 
 ``drop_first`` and missing values ('fail' | 'zero' | 'convert') reduce to a
 code shift: ``eff = codes - drop_first``, and a negative code contributes
-nothing.  The codes live on the matrix's device; the segment plan (a sort of
-the codes) is built once on the host and kept.
+nothing.  The codes live on the matrix's device; the segment plan (a stable
+sort of the codes) is built once there and kept.
 """
 
 import copy as _copy
@@ -229,7 +229,7 @@ class CategoricalMatrix(MatrixBase):
     def plan(self) -> SegmentPlan:
         """The SegmentPlan over the effective codes, built once."""
         if self._plan is None:
-            self._plan = build_plan(self._eff_codes_np, self.shape[1], self._device)
+            self._plan = build_plan(self.eff_codes, self.shape[1], self._device)
         return self._plan
 
     def _operand(self, x) -> torch.Tensor:
@@ -406,17 +406,21 @@ class CategoricalMatrix(MatrixBase):
         """``(plan, uniq)`` over the combined codes with ``other``, built once
         per pair of matrices.
 
-        Small products get a K1·K2-segment plan (``uniq`` None); larger ones a
-        compressed plan over the observed code pairs (at most n of them),
-        with ``uniq`` the flat cell of each segment.
+        Small products get a K1·K2-segment plan (``uniq`` None), its keys
+        combined on the device as ``_native.combine_codes`` does on the host
+        (below 2²⁴ cells no key overflows int32); larger ones a compressed
+        plan over the observed code pairs (at most n of them), with ``uniq``
+        the flat cell of each segment.
         """
         K1, K2 = self.shape[1], other.shape[1]
         cached = self._cross_plans.get(other)
         if cached is None:
-            combined = _native.combine_codes(self._eff_codes_np, other._eff_codes_np, K2)
             if K1 * K2 <= self._CROSS_DENSE_PLAN_MAX:
+                a, b = self.eff_codes, other.eff_codes.to(self._device)
+                combined = torch.where((a >= 0) & (b >= 0), a * K2 + b, -1)
                 cached = (build_plan(combined, K1 * K2, self._device), None)
             else:
+                combined = _native.combine_codes(self._eff_codes_np, other._eff_codes_np, K2)
                 valid = combined >= 0
                 uniq, inverse = np.unique(combined[valid], return_inverse=True)
                 keys = np.full(len(combined), -1, dtype=np.int64)

@@ -2,9 +2,11 @@
 
 Port of ``tabmat_tpu/ops/segments.py``.  Every ``out[key[i]] += v[i]`` of
 the categorical layers (tmv, sandwich diagonals, cat×dense and cat×cat
-cross cells) runs through a plan built once per key array on the host:
+cross cells) runs through a plan built once per key array, on the plan's
+own device, by one stable sort of keys that are already there:
 
-- ``perm`` (E,) int32: the rows whose key is valid, stably sorted by key;
+- ``perm`` (E,) int32, or int64 past 2³¹ − 1 keys: the rows whose key is
+  valid, stably sorted by key;
 - ``bounds`` (W + 1,) int32, or int64 for a sparse layout past 2³¹ − 1
   elements (``sparse_ops.bounds_dtype``): segment ``s`` is
   ``perm[bounds[s]:bounds[s+1]]``, with ``bounds[0] = 0`` and
@@ -21,7 +23,7 @@ the port sums each segment directly, so no error grows with the prefix.
 import numpy as np
 import torch
 
-from .. import _native, _trace
+from .. import _trace
 from . import segsum_kernel
 
 
@@ -55,22 +57,40 @@ class SegmentPlan:
         return segsum_kernel.segsum(values, self)
 
 
-def build_plan(keys: np.ndarray, num_segments: int, device) -> SegmentPlan:
-    """Build a SegmentPlan for the host key array ``keys`` on ``device``.
+def build_plan(keys, num_segments: int, device) -> SegmentPlan:
+    """Build a SegmentPlan for ``keys`` on ``device``: one stable sort there.
 
-    Keys outside ``[0, num_segments)`` fall in no segment.
+    ``keys`` is an integer tensor on ``device`` (a categorical's codes are
+    kept there), or a host array or tensor, uploaded once.  Keys outside
+    ``[0, num_segments)`` fall in no segment: they are mapped to
+    ``num_segments``, which sorts after every valid key.  A stable sort has
+    one answer, so the plan is the host argsort's
+    (``_native.counting_argsort``) bit for bit.
     """
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     with _trace.span("plan.build"):
         _trace.count("plans_built")
-        keys = np.asarray(keys)
-        perm, bounds = _native.counting_argsort(keys, num_segments)
-        perm = perm[bounds[0] : bounds[-1]]
-        bounds = bounds - bounds[0]
-        return SegmentPlan(
-            torch.as_tensor(perm, device=device),
-            torch.as_tensor(bounds, device=device),
-            len(keys),
+        if torch.is_tensor(keys) and keys.device == device:
+            _trace.count("plans_from_device_keys")
+        keys = torch.as_tensor(keys)
+        key_dtype = torch.int32 if num_segments < 2**31 else torch.int64
+        if keys.dtype not in (key_dtype, torch.int64):
+            keys = keys.long()
+        keys = keys.to(device)
+        n = keys.shape[0]
+        positions = torch.int64 if n > 2**31 - 1 else torch.int32
+        keys = torch.where((keys >= 0) & (keys < num_segments), keys, num_segments)
+        keys = keys.to(key_dtype)
+        sorted_keys, order = torch.sort(keys, stable=True)
+        bounds = torch.searchsorted(
+            sorted_keys,
+            torch.arange(num_segments + 1, dtype=key_dtype, device=device),
+            out_int32=positions == torch.int32,
         )
+        # the valid keys' count, on the host: the one wait of a build
+        return SegmentPlan(order[: int(bounds[-1])].to(positions), bounds, n)
 
 
 def stack(plans) -> SegmentPlan:

@@ -37,11 +37,11 @@ def sharded_segment_sum(values: torch.Tensor, codes: torch.Tensor, num_segments:
     """Categorical reduction of row-sharded ``values`` by ``codes``.
 
     The rank sorts its codes into a :class:`~tabmat_torch.ops.segments.SegmentPlan`
-    on the host (the reference argsorts inside its kernel), sums its rows
+    on its device (the reference argsorts inside its kernel), sums its rows
     through the segment-sum kernel, and one (W,) all-reduce adds the ranks.
     Codes outside ``[0, num_segments)`` fall in no segment.
     """
-    plan = build_plan(codes.cpu().numpy(), num_segments, values.device)
+    plan = build_plan(codes, num_segments, values.device)
     return all_reduce(plan.sum(values.contiguous()), mesh, "dp")
 
 

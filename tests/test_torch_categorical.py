@@ -15,6 +15,7 @@ import torch
 import tabmat_tpu as tm
 
 import tabmat_torch as tt
+from tabmat_torch import _native
 from tabmat_torch.convert import from_tabmat_tpu
 
 N = 2000
@@ -164,6 +165,40 @@ def test_cross_categorical(compressed, monkeypatch):
     plan, uniq = port_a._cross_plan(port_b)
     assert (uniq is not None) == compressed
     assert port_a._cross_plan(port_b)[0] is plan  # built once per pair
+
+
+@pytest.mark.parametrize("compressed", [False, True], ids=["full_plan", "compressed_plan"])
+@pytest.mark.parametrize("names", [("drop_first", "zero"), ("zero_drop_first", "zero"),
+                                   ("zero", "convert"), ("plain", "zero_drop_first")],
+                         ids="-".join)
+def test_cross_plan_is_the_plan_of_combine_codes(names, compressed, monkeypatch):
+    """The cross plan is the plan over ``_native.combine_codes``'s keys: the
+    full plan's keys combined on the device, the compressed plan's over
+    ``np.unique`` of them on the host; both give the dense oracle's cell."""
+    _, port_a = _pair(names[0], seed=8)
+    _, port_b = _pair(names[1], seed=9)
+    if compressed:
+        monkeypatch.setattr(tt.CategoricalMatrix, "_CROSS_DENSE_PLAN_MAX", 16)
+    K1, K2 = port_a.shape[1], port_b.shape[1]
+    keys = _native.combine_codes(port_a._eff_codes_np, port_b._eff_codes_np, K2)
+    W = K1 * K2
+    plan, uniq = port_a._cross_plan(port_b)
+    if compressed:
+        valid = keys >= 0
+        cells, inverse = np.unique(keys[valid], return_inverse=True)
+        keys = np.full(len(keys), -1)
+        keys[valid] = inverse
+        W = len(cells)
+        np.testing.assert_array_equal(uniq.numpy(), cells)
+    else:
+        assert uniq is None
+    perm, bounds = _native.counting_argsort(keys, W)
+    np.testing.assert_array_equal(plan.perm.numpy(), perm[bounds[0] : bounds[-1]])
+    np.testing.assert_array_equal(plan.bounds.numpy(), bounds - bounds[0])
+    assert plan.perm.dtype == plan.bounds.dtype == torch.int32
+    d = np.random.default_rng(10).random(N)
+    A, B = port_a.toarray(), port_b.toarray()
+    _close(port_a._cross_sandwich(port_b, d), A.T @ (d[:, None] * B))
 
 
 def test_cross_sparse_names_the_roadmap():

@@ -623,3 +623,34 @@ def test_sparse_design_past_the_limit_on_card(cuda, monkeypatch):
         assert launched["spmv<float>"] == (0 if wide else 3)
     for narrow, wide in zip(*results.values()):
         assert torch.equal(narrow, wide)
+
+
+@pytest.mark.parametrize("W", [1, 22, 1000, 10**6])
+def test_plan_sorted_on_the_card_is_the_host_plan(cuda, W):
+    """``build_plan``'s stable sort on the card, from host keys, int64 or
+    int32 keys on the card, gives the host argsort's plan bit for bit, and
+    a categorical's cross plan, its keys combined on the card, the plan of
+    ``_native.combine_codes``'s keys."""
+    from tabmat_torch import _native
+    from tabmat_torch.ops.segments import build_plan
+
+    rng = np.random.default_rng(W)
+    keys = rng.integers(-1, W + 2, 678_013)
+    perm, bounds = _native.counting_argsort(keys, W)
+    for given in (keys, torch.as_tensor(keys, device=cuda),
+                  torch.as_tensor(keys.astype(np.int32), device=cuda)):
+        plan = build_plan(given, W, cuda)
+        assert plan.perm.device == plan.bounds.device == cuda
+        assert plan.perm.dtype == plan.bounds.dtype == torch.int32
+        assert np.array_equal(plan.perm.cpu().numpy(), perm[bounds[0] : bounds[-1]])
+        assert np.array_equal(plan.bounds.cpu().numpy(), bounds - bounds[0])
+    k2 = 1000 if W > 1000 else 7
+    a = tt.CategoricalMatrix(rng.integers(-1, 1000, 678_013), categories=np.arange(1000),
+                             drop_first=True, cat_missing_method="zero", device=cuda)
+    b = tt.CategoricalMatrix(rng.integers(-1, k2, 678_013), categories=np.arange(k2),
+                             cat_missing_method="zero", device=cuda)
+    cross, _ = a._cross_plan(b)
+    combined = _native.combine_codes(a._eff_codes_np, b._eff_codes_np, b.shape[1])
+    perm, bounds = _native.counting_argsort(combined, a.shape[1] * b.shape[1])
+    assert np.array_equal(cross.perm.cpu().numpy(), perm[bounds[0] : bounds[-1]])
+    assert np.array_equal(cross.bounds.cpu().numpy(), bounds - bounds[0])

@@ -69,6 +69,64 @@ def test_plan_layout_and_sentinels():
     assert empty.sum(torch.ones(5, dtype=torch.float64)).tolist() == [0, 0, 0]
 
 
+def _plan_cases():
+    """Each case: the (keys, W) of the plans it builds, stacked where more
+    than one."""
+    rng = np.random.default_rng(22)
+    mixed = rng.integers(0, 310, 5000)  # past W = 300 too
+    mixed[rng.random(5000) < 0.1] = -1
+    return {
+        "sentinels": [(np.array([2, -1, 0, 2, -1, 5, 0, 7, 6, -3]), 6)],
+        "mixed": [(mixed, 300)],
+        "all_invalid": [(np.array([-1, 4, -2, 9]), 4)],
+        "empty": [(np.array([], dtype=np.int64), 5)],
+        "one_segment": [(rng.integers(-1, 2, 1000), 1)],
+        "wide": [(rng.integers(-1, 10**6, 200_000), 10**6)],
+        "stacked": [(_keys(rng, 3000, 7), 7), (_keys(rng, 3000, 1000), 1000),
+                    (_keys(rng, 3000, 1), 1)],
+    }
+
+
+PLAN_CASES = _plan_cases()
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.gpu)])
+@pytest.mark.parametrize("source", ["host", "device"])
+@pytest.mark.parametrize("case", sorted(PLAN_CASES))
+def test_device_plan_equals_host_plan(case, source, device):
+    """``build_plan``'s one stable sort on the plan's device, from host keys
+    or from keys already there, gives the host argsort's plan and the JAX
+    package's, bit for bit, alone and stacked."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; run on the card with -m gpu")
+    dev = torch.device(device, 0) if device == "cuda" else CPU
+    plans, want_perm, want_bounds, offset = [], [], [], 0
+    for keys, W in PLAN_CASES[case]:
+        perm, bounds = _native.counting_argsort(keys, W)
+        perm, bounds = perm[bounds[0] : bounds[-1]], bounds - bounds[0]
+        ref = tpu_segments.build_plan(keys, W)
+        ref_bounds = np.asarray(ref.bounds)
+        np.testing.assert_array_equal(
+            np.asarray(ref.perm)[ref_bounds[0] : ref_bounds[-1]], perm)
+        np.testing.assert_array_equal(ref_bounds - ref_bounds[0], bounds)
+        given = torch.as_tensor(keys, device=dev) if source == "device" else keys
+        plan = build_plan(given, W, dev)
+        assert plan.perm.device == plan.bounds.device == dev
+        assert plan.perm.dtype == plan.bounds.dtype == torch.int32
+        assert perm.dtype == bounds.dtype == np.int32
+        np.testing.assert_array_equal(plan.perm.cpu().numpy(), perm)
+        np.testing.assert_array_equal(plan.bounds.cpu().numpy(), bounds)
+        assert (plan.num_segments, plan.n_rows) == (W, len(keys))
+        plans.append(plan)
+        want_perm.append(perm)
+        want_bounds.append(bounds[:-1] + offset)
+        offset += len(perm)
+    stacked = stack(plans)
+    np.testing.assert_array_equal(stacked.perm.cpu().numpy(), np.concatenate(want_perm))
+    np.testing.assert_array_equal(stacked.bounds.cpu().numpy(),
+                                  np.concatenate(want_bounds + [[offset]]))
+
+
 def test_stacked_plan_is_the_plans_in_turn():
     rng = np.random.default_rng(4)
     n = 500

@@ -17,6 +17,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import tabmat_torch as tt
 from tabmat_torch import _trace
+from tabmat_torch.ops.segments import build_plan
 from tabmat_torch.parallel.design import DeviceDesign
 
 FORMULA = "y ~ x + s + a + b"
@@ -139,12 +140,32 @@ def test_no_span_outside_the_table(traced):
     # two categoricals: a plan each and one cross plan; no plan is rebuilt by
     # the matrix API's own design, which reuses the matrices' plans
     ("plans_built", CATEGORICALS + CATEGORICALS * (CATEGORICALS - 1) // 2),
+    # every one of them from the codes already on the plan's device
+    ("plans_from_device_keys", CATEGORICALS + CATEGORICALS * (CATEGORICALS - 1) // 2),
     # the plain CPU routes build no kernel table
     ("tables_built", 0),
 ])
 def test_counter_reads_what_the_design_implies(traced, name, expected):
     _, taken, _ = traced
     assert taken["counters"].get(name, 0) == expected
+
+
+def test_design_builds_its_plans_from_device_keys():
+    """A design of three categoricals builds six plans (three categories,
+    three crosses), each from keys already on the plan's device; a plan
+    from a host array counts in ``plans_built`` only."""
+    rng = np.random.default_rng(3)
+    cats = [tt.CategoricalMatrix(rng.integers(-1, k, 300), categories=np.arange(k),
+                                 drop_first=first, cat_missing_method="zero", device="cpu")
+            for k, first in ((4, False), (5, True), (6, False))]
+    _trace.enable()
+    DeviceDesign.from_matrix(tt.SplitMatrix(cats))
+    counters = _trace.take()["counters"]
+    assert counters["plans_from_device_keys"] == counters["plans_built"] == 6
+    _trace.enable()
+    build_plan(np.array([0, 2, -1, 1]), 3, "cpu")
+    build_plan(torch.tensor([0, 2, -1, 1]), 3, "cpu")
+    assert _trace.take()["counters"] == {"plans_built": 2, "plans_from_device_keys": 1}
 
 
 def test_steps_counter_reads_the_fit_steps(traced):
