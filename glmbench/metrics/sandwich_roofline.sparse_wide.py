@@ -1,0 +1,10 @@
+"""``sandwich_roofline.sparse_wide``: the sandwich's least time on a sparse design
+(``_sparse_roofline.py``, from the configuration) over its mean device time,
+in %: the device time of the kernels launched inside the benchmark's
+``sandwich`` span, from the trace."""
+
+from glmbench.metrics._sparse_roofline import share
+
+
+def read(ctx):
+    return share("sandwich", ctx)

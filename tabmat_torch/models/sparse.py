@@ -29,6 +29,7 @@ import numpy as np
 import torch
 from scipy import sparse as sps
 
+from .. import _trace
 from .._config import cache_charge, resolve_device
 from ..ops import dense_ops, sparse_ops
 from ..utils import (
@@ -311,35 +312,40 @@ class SparseMatrix(MatrixBase):
         (a ``sparse_wide``-like shape), or where the device-cache ledger
         refuses both, densified row panels.
         """
-        d_t = to_tensor(d, device=self._device)
-        check_sandwich_compatible(self, d_t)
-        mask = rows_to_mask(
-            None if rows is None else set_up_rows_or_cols(rows, self.shape[0]),
-            self.shape[0], d_t.dtype, self._device,
-        )
-        dm = d_t if mask is None else d_t * mask
-        cols_np = None
-        if not is_identity_index(cols, self.shape[1]):
-            cols_np = set_up_rows_or_cols(cols, self.shape[1], np.int64)
-        pair = self._pair_parts()
-        if pair is not None:
-            S = sparse_ops.pair_sandwich(*pair, self.shape[1], dm)
-            if cols_np is not None:
-                c = torch.as_tensor(cols_np, device=S.device)
-                S = S[c][:, c]
-            return result_like(d, S)
-        dense = self._dense_mirror()
-        if dense is not None:
-            return result_like(d, dense_ops.sandwich_restricted(dense, dm, None, cols_np))
-        return result_like(d, self._panel_sandwich(dm, cols_np))
+        with _trace.span("sparse.sandwich"):
+            d_t = to_tensor(d, device=self._device)
+            check_sandwich_compatible(self, d_t)
+            mask = rows_to_mask(
+                None if rows is None else set_up_rows_or_cols(rows, self.shape[0]),
+                self.shape[0], d_t.dtype, self._device,
+            )
+            dm = d_t if mask is None else d_t * mask
+            cols_np = None
+            if not is_identity_index(cols, self.shape[1]):
+                cols_np = set_up_rows_or_cols(cols, self.shape[1], np.int64)
+            pair = self._pair_parts()
+            if pair is not None:
+                with _trace.span("sparse.sandwich.pair"):
+                    S = sparse_ops.pair_sandwich(*pair, self.shape[1], dm)
+                    if cols_np is not None:
+                        c = torch.as_tensor(cols_np, device=S.device)
+                        S = S[c][:, c]
+                    return result_like(d, S)
+            dense = self._dense_mirror()
+            if dense is not None:
+                with _trace.span("sparse.sandwich.dense"):
+                    return result_like(
+                        d, dense_ops.sandwich_restricted(dense, dm, None, cols_np))
+            with _trace.span("sparse.sandwich.panels"):
+                return result_like(d, self._panel_sandwich(dm, cols_np))
 
     def _panel_sandwich(self, dm: torch.Tensor, cols_np: Optional[np.ndarray]) -> torch.Tensor:
         """``X[:, cols].T diag(dm) X[:, cols]`` by row panels of the CSR layout.
 
         ``cols`` restricts the columns on the host before densifying; each
         panel (at most ``DENSE_SANDWICH_MAX_ELEMENTS`` elements, at least one
-        row) is densified on the device and its sandwich added in order into
-        one (k, k) result.
+        row) is densified on the device, its sandwich added in order into one
+        (k, k) result, and freed before the next.
         """
         if cols_np is None:
             csr = self.array_csr
@@ -349,10 +355,14 @@ class SparseMatrix(MatrixBase):
             data, plan = sparse_ops.compressed_layout(csr, len(cols_np), self._device)
         width = csr.shape[1]
         S = torch.zeros((width, width), dtype=data.dtype, device=self._device)
-        for start, stop, panel in sparse_ops.csr_row_panels(
-            data, plan, csr.indptr, width, DENSE_SANDWICH_MAX_ELEMENTS
-        ):
-            dense_ops.sandwich(panel, dm[start:stop].contiguous(), out=S)
+        for start, stop in sparse_ops.row_panels(csr.shape[0], width,
+                                                 DENSE_SANDWICH_MAX_ELEMENTS):
+            with _trace.span("sparse.panel"):
+                panel = sparse_ops.csr_row_panel(data, plan, csr.indptr, start, stop, width)
+                _trace.count("sparse_panels")
+                _trace.count("sparse_panel_bytes", panel.numel() * panel.element_size())
+                dense_ops.sandwich(panel, dm[start:stop].contiguous(), out=S)
+                del panel
         return S
 
     def _cross_sandwich(
@@ -435,8 +445,9 @@ class SparseMatrix(MatrixBase):
 
     def matvec(self, vec, cols: Optional[np.ndarray] = None, out=None):
         """``X[:, cols] @ vec[cols]``."""
-        check_matvec_out_shape(self, out)
-        return self._matvec_helper(vec, None, cols, out, False)
+        with _trace.span("sparse.matvec"):
+            check_matvec_out_shape(self, out)
+            return self._matvec_helper(vec, None, cols, out, False)
 
     def transpose_matvec(
         self,
@@ -446,8 +457,9 @@ class SparseMatrix(MatrixBase):
         out=None,
     ):
         """``X[rows, cols].T @ vec[rows]``."""
-        check_transpose_matvec_out_shape(self, out)
-        return self._matvec_helper(vec, rows, cols, out, True)
+        with _trace.span("sparse.tmv"):
+            check_transpose_matvec_out_shape(self, out)
+            return self._matvec_helper(vec, rows, cols, out, True)
 
     def _get_col_stds(self, weights, col_means) -> np.ndarray:
         """Weighted column stds via E[X²] − E[X]² over the CSC layout."""

@@ -148,27 +148,37 @@ def pair_sandwich(prod: torch.Tensor, plan: SegmentPlan, k: int, w: torch.Tensor
     return upper + torch.triu(upper, 1).T
 
 
-def csr_row_panels(data: torch.Tensor, plan: SegmentPlan, indptr, width: int,
-                   max_elements: int):
-    """Yield ``(start, stop, panel)``: rows ``[start, stop)`` of a CSR layout
-    as a dense (stop - start, width) tensor on the layout's device.
+def row_panels(n: int, width: int, max_elements: int) -> list:
+    """``(start, stop)`` of each panel of rows of an (n, width) matrix: at
+    most ``max_elements`` elements and at least one row a panel."""
+    step = max(1, max_elements // max(width, 1))
+    return [(start, min(start + step, n)) for start in range(0, n, step)]
+
+
+def csr_row_panel(data: torch.Tensor, plan: SegmentPlan, indptr, start: int, stop: int,
+                  width: int) -> torch.Tensor:
+    """Rows ``[start, stop)`` of a CSR layout as a dense (stop - start, width)
+    tensor on the layout's device.
 
     ``plan`` is the layout of :func:`compressed_layout` (``perm`` the column
-    indices, ``bounds`` the indptr) and ``indptr`` its host copy.  Each panel
-    holds at most ``max_elements`` elements and at least one row.  Stored
+    indices, ``bounds`` the indptr) and ``indptr`` its host copy.  Stored
     duplicates add up.
     """
-    n = len(indptr) - 1
-    step = max(1, max_elements // max(width, 1))
-    for start in range(0, n, step):
-        stop = min(start + step, n)
-        lo, hi = int(indptr[start]), int(indptr[stop])
-        counts = (plan.bounds[start + 1 : stop + 1] - plan.bounds[start:stop]).long()
-        rows = torch.repeat_interleave(
-            torch.arange(stop - start, device=data.device), counts, output_size=hi - lo)
-        panel = torch.zeros((stop - start, width), dtype=data.dtype, device=data.device)
-        panel.index_put_((rows, plan.perm[lo:hi].long()), data[lo:hi], accumulate=True)
-        yield start, stop, panel
+    lo, hi = int(indptr[start]), int(indptr[stop])
+    counts = (plan.bounds[start + 1 : stop + 1] - plan.bounds[start:stop]).long()
+    rows = torch.repeat_interleave(
+        torch.arange(stop - start, device=data.device), counts, output_size=hi - lo)
+    panel = torch.zeros((stop - start, width), dtype=data.dtype, device=data.device)
+    panel.index_put_((rows, plan.perm[lo:hi].long()), data[lo:hi], accumulate=True)
+    return panel
+
+
+def csr_row_panels(data: torch.Tensor, plan: SegmentPlan, indptr, width: int,
+                   max_elements: int):
+    """Yield ``(start, stop, panel)`` for each of :func:`row_panels`, the
+    panel densified by :func:`csr_row_panel`."""
+    for start, stop in row_panels(len(indptr) - 1, width, max_elements):
+        yield start, stop, csr_row_panel(data, plan, indptr, start, stop, width)
 
 
 def code_column_plan(codes: np.ndarray, n_codes: int, n_rows: int, csc, device,
