@@ -10,7 +10,7 @@ Phases, each printed as it runs:
 1. environment: the card's name and power limit, torch/CUDA/nvcc versions,
    TF32 off;
 2. build of the CUDA kernels from ``tabmat_torch/csrc``, one ``nvcc`` per
-   source (nine sources), all at once (seconds, ptxas registers and spills);
+   source (ten sources), all at once (seconds, ptxas registers and spills);
 3. each kernel against its plain PyTorch version on the card: each of the
    sandwich kernels through its own wrapper (``sandwich<double>``, off the
    route, at 1,000,000 x 50 and ``sandwich<float>``, off the route too, at
@@ -79,9 +79,11 @@ Phases, each printed as it runs:
    ``device=``: matvec and transpose_matvec with active sets and ``out=``,
    and the sandwich (but ``sparse_wide``'s, which is 6c), against scipy;
 6c. ``sparse_wide``'s sandwich, past the pair plan's and the densified
-   matrix's budgets: two row panels through the FP64 tensor-core kernel,
-   the full (10,000 x 10,000) S against the same panels through the plain
-   version on the card, a 200-column slab and a rows + cols restriction
+   matrix's budgets: the sparse Gram kernel (``sparse_gram<double>``, one
+   launch, no panel), the full (10,000 x 10,000) S against its plain
+   version on the card, exactly symmetric and bit for bit across two
+   sandwiches, ``sparse_gram<float>`` on the same design in float32 against
+   its plain version, a 200-column slab and a rows + cols restriction
    against scipy on the host;
 7. the sparse main path at 1,000,000 x (5 dense + 100 sparse at 1% + 1000 +
    1000 levels), built without ``device=``: as phase 5;
@@ -105,8 +107,8 @@ Phases, each printed as it runs:
    and ``index_add_`` for the segment sum at the mixed step's three shapes, ``table[codes]``, ``embedding_bag`` and
    ``src[idx]`` for the gather, also at the window take's sorted indices),
    the sandwich kernels at 1M x 50, 1M x 5, 4M x 10,
-   400k x 160, 400k x 200, 1M x 177, 1M x 129, 200k x 1000 (f32 and f64)
-   and ``sparse_wide``'s panels, and one
+   400k x 160, 400k x 200, 1M x 177, 1M x 129, 200k x 1000 (f32 and f64),
+   ``sparse_gram<T>`` at ``sparse_wide``, and one
    ``irls_step`` on each path (7b's formula design among them) in each
    inner precision, with the kernel launches per step;
 9. the benchmark CLI, ``tabmat_torch.bench.main.main(argv)`` in process
@@ -164,7 +166,7 @@ dense cell the width dispatch's kernels, the sparse main path both sparse
 products, phase 11 ``spmv<T,int64>`` and no ``spmv<T>``), and no path may
 launch ``sandwich<double>`` or ``sandwich<float>``.  Any failed
 check raises, so the script exits 0 only when every check passed.  The last
-three lines are the ``kernels`` JSON object (nineteen instantiations),
+three lines are the ``kernels`` JSON object (twenty-one instantiations),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 Without CUDA it exits non-zero and prints no result.
 """
@@ -287,7 +289,9 @@ OP_TOL = 1e-12
 # the f32 kernel past 176, which sandwich<float> was until it left the
 # route; sandwich_narrow<T> the
 # packed modes of v4 and v5, sandwich_mma<double> also the unsliced pair
-# kernel (pallas_pairs.py:29).
+# kernel (pallas_pairs.py:29); sparse_gram<T> the sliced pair kernel on the
+# sandwich of a SparseMatrix past the pair plan's and the densified matrix's
+# budgets, which sandwich_mma<double> took on densified row panels before.
 KERNELS = {
     "sandwich<double>": ("tabmat_torch/csrc/sandwich.cu", "tabmat_tpu/ops/pallas_sandwich_v4.py:141"),
     "sandwich<float>": ("tabmat_torch/csrc/sandwich.cu", "tabmat_tpu/ops/pallas_kernels.py:34"),
@@ -316,6 +320,10 @@ KERNELS = {
     "spmv<double,int64>": ("tabmat_torch/csrc/spmv.cu",
                            "tabmat_tpu/ops/pallas_tmv_fused.py:179"),
     "spmv<float,int64>": ("tabmat_torch/csrc/spmv.cu", "tabmat_tpu/ops/pallas_tmv_fused.py:179"),
+    "sparse_gram<double>": ("tabmat_torch/csrc/sparse_gram.cu",
+                            "tabmat_tpu/ops/pallas_pairs.py:103"),
+    "sparse_gram<float>": ("tabmat_torch/csrc/sparse_gram.cu",
+                           "tabmat_tpu/ops/pallas_pairs.py:103"),
 }
 DENSE_KERNELS = ("sandwich_mma_tri<double>", "sandwich_tri<float>", "column_absmax")
 NARROW_KERNELS = ("sandwich_narrow<double>", "sandwich_narrow<float>", "column_absmax")
@@ -352,9 +360,10 @@ def bound(n_bytes: float, n_ops: float):
 
 
 def _kernel_modules():
-    from tabmat_torch.ops import gather_kernel, sandwich_kernel, segsum_kernel, spmv_kernel
+    from tabmat_torch.ops import (gather_kernel, sandwich_kernel, segsum_kernel,
+                                  sparse_gram_kernel, spmv_kernel)
 
-    return sandwich_kernel, gather_kernel, segsum_kernel, spmv_kernel
+    return sandwich_kernel, gather_kernel, segsum_kernel, spmv_kernel, sparse_gram_kernel
 
 
 def reset_launch_counts() -> None:
@@ -858,15 +867,16 @@ def phase_sparse_standalone(designs: dict, device=None, seed: int = 2) -> None:
 
 def phase_sparse_wide(X, device=None, seed: int = 4, slab: int = SLAB) -> dict:
     """``sparse_wide``'s sandwich, past the pair plan's and the densified
-    matrix's budgets: row panels through the width dispatch.  The full S
-    against the same panels through the plain version on the device, a
+    matrix's budgets: the sparse Gram kernel over the CSR and CSC layouts.
+    The full S against the kernel's plain version on the device, exactly
+    symmetric and bit for bit across two sandwiches (on the card), the
+    float32 kernel on the same design against its plain version, a
     ``slab``-column slab and a rows + cols restriction against scipy on the
-    host.  ``device=None`` builds without ``device=`` (the card)."""
+    host.  ``device=None`` builds without ``device=`` (the card).  Returns
+    the matrix, ``d`` and max|kernel - plain| by instantiation."""
     import tabmat_torch as tt
     from scipy import sparse as sps
-    from tabmat_torch.models import sparse as port_sparse
-    from tabmat_torch.ops import sparse_ops
-    from tabmat_torch.ops.sandwich_kernel import sandwich_plain
+    from tabmat_torch.ops import sparse_gram_kernel as gk
 
     n, k = X.shape
     print(f"[6c] sparse_wide sandwich {n}x{k} ({X.nnz} nonzeros), "
@@ -877,31 +887,41 @@ def phase_sparse_wide(X, device=None, seed: int = 4, slab: int = SLAB) -> dict:
     if m._pair_parts() is not None or m._dense_mirror() is not None:
         raise AssertionError("sparse_wide must be past the pair plan's and the densified "
                              "matrix's budgets")
+    if not m._gram_serves(m.array_csr):
+        raise AssertionError("sparse_wide's sandwich must take the sparse Gram kernel")
     rng = np.random.default_rng(seed)
     d_np = rng.random(n) - 0.25
     d_np[::11] = 0.0
     d = torch.as_tensor(d_np, device=m.device)
+    on_card = m.device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
     t0 = time.perf_counter()
     S = m.sandwich(d)
-    sync = torch.cuda.synchronize if m.device.type == "cuda" else (lambda: None)
     sync()
     seconds = time.perf_counter() - t0
+    print(f"  the first sandwich (its kernel tables built) took {seconds:.3f} s on the host "
+          "clock")
+    if on_card and not (torch.equal(S, S.T) and torch.equal(S, m.sandwich(d))):
+        raise AssertionError("sparse_wide's S is not exactly symmetric, or two sandwiches differ")
     data, plan = m._csr_parts()
-    P = torch.zeros_like(S)
-    panels = 0
-    for start, stop, panel in sparse_ops.csr_row_panels(
-        data, plan, m.array_csr.indptr, k, port_sparse.DENSE_SANDWICH_MAX_ELEMENTS
-    ):
-        P += sandwich_plain(panel, d[start:stop])
-        panels += 1
-        del panel
-    print(f"  {panels} row panels of at most {port_sparse.DENSE_SANDWICH_MAX_ELEMENTS} "
-          f"elements; the sandwich took {seconds:.3f} s on the host clock")
-    if m.device.type == "cuda" and not torch.equal(S, S.T):
-        raise AssertionError("sparse_wide's S is not exactly symmetric")
-    _check("sparse_wide S relerr vs the same panels through the plain version",
-           float((S - P).abs().max() / P.abs().max()), F64_TOL)
+    P = gk.sparse_gram_plain(data, plan.perm, plan.bounds, d, k)
+    max_abs = {"sparse_gram<double>": float((S - P).abs().max())}
+    _check("sparse_wide S relerr vs the plain version",
+           max_abs["sparse_gram<double>"] / float(P.abs().max()), F64_TOL)
     del P
+    # the float32 instantiation on the same design
+    csc_data, csc_plan = m._csc_parts()
+    data32, d32 = data.float(), d.float()
+    S32 = gk.sparse_gram(data32, plan, csc_data.float(), csc_plan, d32)
+    again = gk.sparse_gram(data32, plan, csc_data.float(), csc_plan, d32)
+    if on_card and not (torch.equal(S32, S32.T) and torch.equal(S32, again)):
+        raise AssertionError("sparse_gram<float>'s S is not exactly symmetric, or two "
+                             "launches differ")
+    P32 = gk.sparse_gram_plain(data32, plan.perm, plan.bounds, d32, k)
+    max_abs["sparse_gram<float>"] = float((S32 - P32).abs().max())
+    _check("sparse_wide float32 S relerr vs the plain version",
+           max_abs["sparse_gram<float>"] / float(P32.abs().max()), F32_TOL)
+    del S32, again, P32, data32, d32
     Xr = X.tocsr()
     slab_ref = (Xr.T @ sps.csr_matrix(Xr[:, :slab].multiply(d_np[:, None]))).toarray()
     _check(f"sparse_wide S[:, :{slab}] relerr vs scipy", _relerr(S[:, :slab].cpu(), slab_ref),
@@ -912,7 +932,7 @@ def phase_sparse_wide(X, device=None, seed: int = 4, slab: int = SLAB) -> dict:
     sub_ref = (sub.T @ sps.csr_matrix(sub.multiply(d_np[rows, None]))).toarray()
     _check("sparse_wide sandwich rows+cols relerr vs scipy",
            _relerr(m.sandwich(d_np, rows=rows, cols=cols), sub_ref), F64_TOL)
-    return {"matrix": m, "d": d}
+    return {"matrix": m, "d": d, "max_abs": max_abs}
 
 
 def _numpy_irls(X, y, family, steps, n_cg, inner, sample_weight=None):
@@ -1379,6 +1399,14 @@ def sandwich_bound(n: int, k: int, size: int):
     return bound(n * k * size + n * size + k * k * size, n * k * (k + 1) + n * k)
 
 
+def sparse_gram_bound(n: int, k: int, nnz: int, pairs: int, size: int):
+    """``(bound_ms, bound_by)`` of one sparse Gram matrix: the CSR (values,
+    int32 columns and pointers) and d read once, the (k, k) S written once;
+    a multiply-add a within-row pair and the scaling by d (``pairs`` is
+    ``Σ_r nnz_r²``), as ``glmbench/metrics/_sparse_roofline.py`` counts."""
+    return bound(nnz * (size + 4) + (n + 1) * 4 + n * size + k * k * size, pairs + nnz)
+
+
 # sandwich kernel -> the shapes phase 8 times it at; the first is its row
 # in the kernels line (the 1M x 50 main path, path (a), path (b), the f32
 # steps and matrix past the triangle kernel's widths; the tensor-core
@@ -1397,17 +1425,43 @@ SANDWICH_TIMES = {
 }
 
 
+def sparse_wide_times(card: str, wide: dict) -> dict:
+    """``sparse_wide``'s sandwich (phase 6c's matrix and ``d``): the sparse
+    Gram kernel in both types against its plain version on the card."""
+    from tabmat_torch.ops import sparse_gram_kernel as gk
+    from tabmat_torch.ops import sparse_ops
+
+    times = {}
+    m, dw = wide["matrix"], wide["d"]
+    nw, kw = m.shape
+    data, plan = m._csr_parts()
+    csc_data, csc_plan = m._csc_parts()
+    pairs = sparse_ops.pair_count(m.array_csr)
+    for dtype in (torch.float64, torch.float32):
+        name = f"sparse_gram<{'double' if dtype == torch.float64 else 'float'}>"
+        a, b, dd = data.to(dtype), csc_data.to(dtype), dw.to(dtype)
+        t = _compare(f"{name} sparse_wide {nw}x{kw}", card,
+                     lambda: gk.sparse_gram(a, plan, b, csc_plan, dd),
+                     lambda: gk.sparse_gram_plain(a, plan.perm, plan.bounds, dd, kw),
+                     reps=5, warmup=1)
+        t["bound"] = sparse_gram_bound(nw, kw, a.numel(), pairs, a.element_size())
+        print(f"    bound {t['bound'][0]:.6f} ms by {t['bound'][1]}; the kernel at "
+              f"{t['bound'][0] / t['kernel']:.4f} of it; {pairs / (t['kernel'] * 1e-3):.4e} "
+              "pairs a second")
+        times[name] = t
+        del a, b, dd
+    return times
+
+
 def phase_times(device, n: int, k: int, card: str, mixed: dict, sparse: dict,
                 cases: list, wide: dict, frames: dict) -> dict:
     """Kernel, plain and library times with their bounds, and IRLS step times."""
     import tabmat_torch as tt
     from torch.nn import functional as F
     from tabmat_torch.glm import irls_step
-    from tabmat_torch.models import sparse as port_sparse
     from tabmat_torch.ops import gather_kernel as gk
     from tabmat_torch.ops import sandwich_kernel as sk
     from tabmat_torch.ops import segsum_kernel as ssk
-    from tabmat_torch.ops import sparse_ops
     from tabmat_torch.ops import spmv_kernel as spk
     from tabmat_torch.ops.segments import SegmentPlan
     from tabmat_torch.parallel.design import DeviceDesign
@@ -1438,33 +1492,7 @@ def phase_times(device, n: int, k: int, card: str, mixed: dict, sparse: dict,
     times["column_absmax"] = t
     del X, d
 
-    # sparse_wide's sandwich: its row panels, densified once, through the
-    # tensor-core kernel into one S, against the same panels through the
-    # plain version and einsum (each a few hundred ms: two repeats)
-    m, dw = wide["matrix"], wide["d"]
-    nw, kw = m.shape
-    data, plan = m._csr_parts()
-    panels = [(panel, dw[start:stop]) for start, stop, panel in sparse_ops.csr_row_panels(
-        data, plan, m.array_csr.indptr, kw, port_sparse.DENSE_SANDWICH_MAX_ELEMENTS)]
-    S = torch.zeros((kw, kw), dtype=torch.float64, device=device)
-
-    def over_panels(fn):
-        def run():
-            for panel, dp in panels:
-                fn(panel, dp)
-        return run
-
-    t = _compare(f"sandwich_mma<double> sparse_wide {nw}x{kw}, {len(panels)} panels", card,
-                 over_panels(lambda A, dp: sk.sandwich_mma(A, dp, out=S)),
-                 over_panels(lambda A, dp: S.add_(sk.sandwich_plain(A, dp))),
-                 over_panels(lambda A, dp: S.add_(torch.einsum("ni,n,nj->ij", A, dp, A))),
-                 reps=2, warmup=1)
-    t["bound"] = sandwich_bound(nw, kw, 8)
-    print(f"    bound {t['bound'][0]:.6f} ms by {t['bound'][1]} (the densified panels); "
-          f"the sparse product itself needs {sparse_ops.pair_count(m.array_csr)} "
-          f"multiply-adds and writes {kw * kw * 8} bytes of S")
-    times[f"sandwich_mma<double> sparse_wide {nw}x{kw}"] = t
-    del panels, S
+    times.update(sparse_wide_times(card, wide))
 
     design, y = mixed["design"], mixed["y"]
     cat = design._block("cat")
@@ -1613,7 +1641,7 @@ CLI_KERNELS = {
     "dense": ("sandwich_narrow<double>",),
     "sparse": ("spmv<double>",),
     "sparse_narrow": ("spmv<double>",),
-    "sparse_wide": ("spmv<double>", "sandwich_mma<double>"),
+    "sparse_wide": ("spmv<double>", "sparse_gram<double>"),
     "one_cat": ("gather<double>", "segsum_slots<double>"),
     "two_cat": ("gather<double>", "segsum<double>", "segsum_slots<double>"),
     "dense_cat": ("sandwich_narrow<double>", "gather<double>", "segsum<double>",
@@ -1723,7 +1751,8 @@ def phase_bench_cli(device=None, scale: float = 1.0, out_dir: str = "build/bench
     print(f"  host peak of the standardized transpose-matvecs (bytes): {peaks}", flush=True)
 
     # the budget: the sparse design under a zero budget keeps neither the
-    # pair plan nor the densified mirror, and takes the row panels
+    # pair plan nor the densified mirror, and takes the sparse Gram kernel
+    # with its tables built a call at a time
     sparse_rows = report["rows"]["sparse"]
     make_sparse = get_all_benchmark_matrices(scale=scale, device=device)["sparse"]
     _config.set_cache_budget_mb(0)
@@ -1750,9 +1779,9 @@ def phase_bench_cli(device=None, scale: float = 1.0, out_dir: str = "build/bench
                   f"would take {mirror}", flush=True)
             if not cache < BUDGET_CACHE_SHARE * mirror:
                 raise AssertionError(f"the zero-budget sandwich keeps {cache} bytes")
-            if counts["sandwich_mma_tri<double>"] == 0:
-                raise AssertionError("the zero-budget row panels did not launch "
-                                     "sandwich_mma_tri<double>")
+            if counts["sparse_gram<double>"] == 0:
+                raise AssertionError("the zero-budget sandwich did not launch "
+                                     "sparse_gram<double>")
     finally:
         _config.set_cache_budget_mb(None)
     # a budget that refuses nothing records the charge of what the sandwich built
@@ -2409,7 +2438,9 @@ def main() -> int:
     run_main_path("standalone sparse phase", phase_sparse_standalone, designs,
                   must_launch=SPARSE_KERNELS[:1])
     wide = run_main_path("sparse_wide sandwich", phase_sparse_wide, designs["sparse_wide"],
-                         must_launch=("sandwich_mma<double>",))
+                         must_launch=("sparse_gram<double>",),
+                         must_not=("sandwich_mma<double>",))
+    max_abs.update(wide["max_abs"])
     sparse = run_main_path("sparse main path", phase_mixed_path, N, MIX_KD, MIX_LEVELS,
                            sparse=block, fit_steps=SPARSE_FIT_STEPS,
                            must_launch=SPARSE_KERNELS + NARROW_KERNELS[:2] + SEGSUM_KERNELS)

@@ -16,10 +16,12 @@ trace beside the kernels it launches, on the trace's clock.
 Counters: ``plans_built`` (segment plans, ``ops/segments.py``) and, of
 them, ``plans_from_device_keys`` (built from keys already on the plan's
 device, with no upload), ``tables_built`` (kernel tables built at a plan's
-first call on the card, ``ops/segsum_kernel.py`` and ``ops/spmv_kernel.py``),
-``steps`` (Newton steps, ``glm.py``), and ``sparse_panels`` and
-``sparse_panel_bytes`` (the row panels a ``SparseMatrix`` sandwich densifies,
-and their bytes, ``models/sparse.py``).  Kernel launches are counted by the
+first call on the card, ``ops/segsum_kernel.py``, ``ops/spmv_kernel.py`` and
+``ops/sparse_gram_kernel.py``),
+``steps`` (Newton steps, ``glm.py``), ``sparse_gram`` (the ``SparseMatrix``
+sandwiches the sparse Gram kernel serves, ``models/sparse.py``), and
+``sparse_panels`` and ``sparse_panel_bytes`` (the row panels a
+``SparseMatrix`` sandwich densifies, and their bytes).  Kernel launches are counted by the
 wrappers' ``launches`` dicts.
 
 Spans are ``with`` blocks inside function bodies, never wrappers: a frame

@@ -12,10 +12,12 @@ dtype) and every op is one launch of the sparse segment product
 - ``sandwich``         → the pair plan (within-row nonzero pairs keyed by
   column pair) while it fits its budgets, else the densified matrix on the
   device through the dense sandwich kernel; past both budgets (or where the
-  device-cache ledger, ``_config.cache_charge``, refuses both) row panels of
-  the CSR layout, each densified on the device and added in order into one
-  (k, k) result by the dense sandwich's width dispatch (the FP64 tensor
-  cores at the reference's ``sparse_wide``, 40k × 10k);
+  device-cache ledger, ``_config.cache_charge``, refuses both) the sparse
+  Gram kernel over the CSR and CSC layouts (``ops/sparse_gram_kernel.py``:
+  the reference's ``sparse_wide``, 40k × 10k at 1%); only layouts with
+  int64 bounds, which it has no instantiation for, take row panels of the
+  CSR layout, each densified on the device and added in order into one
+  (k, k) result by the dense sandwich's width dispatch;
 - cross vs dense       → the CSC layout with ``d`` as a per-row scale.
 
 The reference's six tmv and five matvec routes (mirrors, plane caches,
@@ -31,7 +33,7 @@ from scipy import sparse as sps
 
 from .. import _trace
 from .._config import cache_charge, resolve_device
-from ..ops import dense_ops, sparse_ops
+from ..ops import dense_ops, sparse_gram_kernel, sparse_ops
 from ..utils import (
     _check_indexer,
     add_into_out,
@@ -60,7 +62,7 @@ DENSE_SANDWICH_MAX_ELEMENTS = 1 << 28
 PAIR_SANDWICH_MAX_PAIRS = 50_000_000
 PAIR_SANDWICH_MAX_SEGMENTS = 1 << 26
 
-_DEVICE_STATE = ("_csr", "_csc", "_pair", "_dense")
+_DEVICE_STATE = ("_csr", "_csc", "_pair", "_dense", "_gram")
 
 
 class SparseMatrix(MatrixBase):
@@ -310,7 +312,8 @@ class SparseMatrix(MatrixBase):
 
         The pair plan first, then the densified matrix; past both budgets
         (a ``sparse_wide``-like shape), or where the device-cache ledger
-        refuses both, densified row panels.
+        refuses both, the sparse Gram kernel, or densified row panels where
+        the layouts have int64 bounds.
         """
         with _trace.span("sparse.sandwich"):
             d_t = to_tensor(d, device=self._device)
@@ -336,22 +339,53 @@ class SparseMatrix(MatrixBase):
                 with _trace.span("sparse.sandwich.dense"):
                     return result_like(
                         d, dense_ops.sandwich_restricted(dense, dm, None, cols_np))
+            if cols_np is None:
+                csr = self.array_csr
+            else:
+                csr = self.array_csr[:, cols_np]
+                csr.sort_indices()
+            if self._gram_serves(csr):
+                with _trace.span("sparse.sandwich.gram"):
+                    _trace.count("sparse_gram")
+                    return result_like(d, self._gram_sandwich(dm, csr, cols_np))
             with _trace.span("sparse.sandwich.panels"):
-                return result_like(d, self._panel_sandwich(dm, cols_np))
+                return result_like(d, self._panel_sandwich(dm, csr, cols_np))
 
-    def _panel_sandwich(self, dm: torch.Tensor, cols_np: Optional[np.ndarray]) -> torch.Tensor:
+    @staticmethod
+    def _gram_serves(csr) -> bool:
+        """Whether the Gram kernel serves the sandwich of ``csr``: int32
+        bounds and a float dtype, which it is instantiated for."""
+        return csr.nnz <= sparse_ops.INT32_MAX and csr.dtype in (np.float64, np.float32)
+
+    def _gram_sandwich(self, dm: torch.Tensor, csr, cols_np: Optional[np.ndarray]):
+        """``X[:, cols].T diag(dm) X[:, cols]`` by the Gram kernel over the
+        CSR and CSC layouts: the matrix's own, whose kernel tables stay on
+        the device where the device-cache ledger takes their bytes (charged
+        once, ``_config.cache_charge``), or with ``cols`` the restricted
+        ``csr``'s, built on the host for this call with its tables."""
+        if cols_np is None:
+            csr_parts, csc_parts = self._csr_parts(), self._csc_parts()
+            if self._gram is None:
+                nbytes = sparse_gram_kernel.table_bytes(csr_parts[1], csc_parts[1])
+                self._gram = self._device.type == "cuda" and cache_charge(nbytes, self)
+            keep = self._gram
+        else:
+            csr_parts = sparse_ops.compressed_layout(csr, len(cols_np), self._device)
+            csc_parts = sparse_ops.compressed_layout(csr.tocsc(), csr.shape[0], self._device)
+            keep = False
+        return sparse_gram_kernel.sparse_gram(*csr_parts, *csc_parts, dm.contiguous(), keep)
+
+    def _panel_sandwich(self, dm: torch.Tensor, csr, cols_np: Optional[np.ndarray]):
         """``X[:, cols].T diag(dm) X[:, cols]`` by row panels of the CSR layout.
 
-        ``cols`` restricts the columns on the host before densifying; each
-        panel (at most ``DENSE_SANDWICH_MAX_ELEMENTS`` elements, at least one
-        row) is densified on the device, its sandwich added in order into one
-        (k, k) result, and freed before the next.
+        ``csr`` is the host CSR, restricted to ``cols`` before densifying;
+        each panel (at most ``DENSE_SANDWICH_MAX_ELEMENTS`` elements, at
+        least one row) is densified on the device, its sandwich added in
+        order into one (k, k) result, and freed before the next.
         """
         if cols_np is None:
-            csr = self.array_csr
             data, plan = self._csr_parts()
         else:
-            csr = self.array_csr[:, cols_np]
             data, plan = sparse_ops.compressed_layout(csr, len(cols_np), self._device)
         width = csr.shape[1]
         S = torch.zeros((width, width), dtype=data.dtype, device=self._device)

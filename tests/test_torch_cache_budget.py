@@ -103,7 +103,7 @@ def test_zero_budget_sparse_keeps_no_cache():
     _config.set_cache_budget_mb(0)
     m = _sparse()
     got = m.sandwich(d)
-    assert m._pair == () and m._dense is None  # both refused: row panels
+    assert m._pair == () and m._dense is None  # both refused: the Gram kernel
     assert _config.cache_spent_bytes() == 0
     _close(got, want)
     ref = tm.SparseMatrix(sps.csc_matrix(m.array_csc)).sandwich(d)

@@ -257,13 +257,16 @@ def test_mma_kernel_rejects_float32(cuda):
 
 def test_sparse_sandwich_past_both_budgets_on_card(cuda, monkeypatch):
     """Row panels densified on the card and summed through the tensor-core
-    kernel, against scipy."""
+    kernel, against scipy: layouts with int64 bounds (``INT32_MAX`` cut to
+    0), which the Gram kernel has no instantiation for."""
     from scipy import sparse as sps
 
     from tabmat_torch.models import sparse as port_sparse
+    from tabmat_torch.ops import sparse_ops
 
     monkeypatch.setattr(port_sparse, "PAIR_SANDWICH_MAX_PAIRS", 0)
     monkeypatch.setattr(port_sparse, "DENSE_SANDWICH_MAX_ELEMENTS", 3_000 * 700)
+    monkeypatch.setattr(sparse_ops, "INT32_MAX", 0)
     rng = np.random.default_rng(6)
     Xs = sps.random(10_007, 700, density=0.02, format="csc", random_state=rng)
     d = rng.random(10_007) - 0.3
@@ -279,6 +282,113 @@ def test_sparse_sandwich_past_both_budgets_on_card(cuda, monkeypatch):
     sub_ref = (sub.T @ sps.csr_matrix(sub.multiply(d[rows, None]))).toarray()
     got = m.sandwich(d, rows=rows, cols=cols)  # 100 columns: the tiled kernel
     assert np.abs(got - sub_ref).max() / np.abs(sub_ref).max() <= 1e-13
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("shape", [(4_000, 1_000, 0.01), (4_000, 30_000, 0.01)],
+                         ids=["sparse_wide_cut_down", "wider_than_a_chunk"])
+def test_sparse_gram_matches_plain_and_repeats(cuda, shape, dtype):
+    """``sparse_gram<T>`` against its plain version on the card: the
+    benchmark's ``sparse_wide`` design cut to 4,000 rows and 1,000 columns,
+    and a 1% design of 30,000 columns (15 chunks of the kernel's
+    accumulator); exactly symmetric, bit for bit across two launches."""
+    from scipy import sparse as sps
+
+    from tabmat_torch.ops import sparse_gram_kernel as gk
+    from tabmat_torch.ops import sparse_ops
+
+    n, k, density = shape
+    rng = np.random.default_rng(k)
+    X = sps.random(n, k, density=density, format="csc", random_state=rng).astype(
+        np.float64 if dtype == torch.float64 else np.float32)
+    csr_parts = sparse_ops.compressed_layout(X.tocsr(), k, cuda)
+    csc_parts = sparse_ops.compressed_layout(X, n, cuda)
+    d = torch.as_tensor(rng.random(n) - 0.3, dtype=dtype, device=cuda)
+    d[::7] = 0.0
+    name = f"sparse_gram<{'double' if dtype == torch.float64 else 'float'}>"
+    before = gk.launches[name]
+    first = gk.sparse_gram(*csr_parts, *csc_parts, d)
+    second = gk.sparse_gram(*csr_parts, *csc_parts, d)
+    torch.cuda.synchronize()
+    assert gk.launches[name] == before + 2
+    assert torch.equal(first, first.T) and torch.equal(first, second)
+    data, plan = csr_parts
+    want = gk.sparse_gram_plain(data.double(), plan.perm, plan.bounds, d.double(), k)
+    assert float((first.double() - want).abs().max() / want.abs().max()) <= TOL[dtype]
+
+
+def test_sparse_sandwich_takes_the_gram_kernel_on_card(cuda):
+    """Past both budgets a 1% matrix takes ``sparse_gram<double>``, one launch
+    a sandwich and no panel; against scipy, with ``rows=`` and ``cols=``."""
+    from scipy import sparse as sps
+
+    from tabmat_torch.ops import sparse_gram_kernel as gk
+
+    rng = np.random.default_rng(8)
+    Xs = sps.random(20_000, 9_000, density=0.01, format="csc", random_state=rng)
+    d = rng.random(20_000) - 0.3
+    m = tt.SparseMatrix(Xs)
+    assert m._pair_parts() is None and m._dense_mirror() is None
+    before, panels = gk.launches["sparse_gram<double>"], sk.launches["sandwich_mma<double>"]
+    S = m.sandwich(d)
+    assert gk.launches["sparse_gram<double>"] == before + 1
+    assert sk.launches["sandwich_mma<double>"] == panels
+    np.testing.assert_array_equal(S, S.T)
+    ref = (Xs.T @ sps.csr_matrix(Xs.multiply(d[:, None]))).toarray()
+    assert np.abs(S - ref).max() / np.abs(ref).max() <= 1e-13
+    rows, cols = np.arange(0, 20_000, 3), np.sort(rng.choice(9_000, 700, replace=False))
+    sub = Xs.tocsr()[rows][:, cols]
+    sub_ref = (sub.T @ sps.csr_matrix(sub.multiply(d[rows, None]))).toarray()
+    got = m.sandwich(d, rows=rows, cols=cols)
+    assert gk.launches["sparse_gram<double>"] == before + 2
+    assert np.abs(got - sub_ref).max() / np.abs(sub_ref).max() <= 1e-13
+
+
+def test_sparse_gram_tables_follow_the_cache_ledger_on_card(cuda):
+    """The Gram kernel's tables stay on the card where the device-cache
+    ledger takes their bytes, and are built a call at a time where it
+    refuses them (a zero budget): the same S either way."""
+    from scipy import sparse as sps
+
+    from tabmat_torch import _config
+    from tabmat_torch.ops import sparse_gram_kernel as gk
+
+    # 9,000 columns: past the pair plan's k² segments and the densified matrix
+    Xs = sps.random(6_000, 9_000, density=0.01, format="csc",
+                    random_state=np.random.default_rng(9))
+    d = np.random.default_rng(10).random(6_000)
+    _config._cache_refund(_config.cache_spent_bytes())
+    try:
+        _config.set_cache_budget_mb(1 << 20)
+        kept = tt.SparseMatrix(Xs)
+        S = kept.sandwich(d)
+        nbytes = gk.table_bytes(kept._csr_parts()[1], kept._csc_parts()[1])
+        assert kept._gram and _config.cache_spent_bytes() == nbytes
+        assert [key[0] for key in kept._csc_parts()[1].tables] == ["sparse_gram"]
+        _config.set_cache_budget_mb(0)
+        refused = tt.SparseMatrix(Xs)
+        np.testing.assert_array_equal(refused.sandwich(d), S)
+        np.testing.assert_array_equal(refused.sandwich(d), S)
+        assert refused._gram is False and not refused._csc_parts()[1].tables
+        assert _config.cache_spent_bytes() == nbytes
+    finally:
+        _config.set_cache_budget_mb(None)
+        _config._cache_refund(_config.cache_spent_bytes())
+
+
+def test_sparse_gram_refuses_int64_bounds_on_card(cuda):
+    from scipy import sparse as sps
+
+    from tabmat_torch.ops import sparse_gram_kernel as gk
+    from tabmat_torch.ops import sparse_ops
+    from tabmat_torch.ops.segments import SegmentPlan
+
+    X = sps.random(100, 50, density=0.1, format="csc", random_state=np.random.default_rng(1))
+    data, plan = sparse_ops.compressed_layout(X.tocsr(), 50, cuda)
+    wide = SegmentPlan(plan.perm, plan.bounds.long(), plan.n_rows)
+    with pytest.raises(TypeError, match="int32 bounds"):
+        gk.sparse_gram(data, wide, *sparse_ops.compressed_layout(X, 100, cuda),
+                       torch.ones(100, dtype=torch.float64, device=cuda))
 
 
 @pytest.mark.parametrize("k", EDGE_KS)

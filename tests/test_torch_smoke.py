@@ -82,10 +82,10 @@ def test_kernel_phase_on_cpu():
         "sandwich<double>", "sandwich<float>", "sandwich_narrow<double>",
         "sandwich_narrow<float>", "sandwich_tri<float>", "sandwich_wide<float>",
         "sandwich_mma<double>", "sandwich_mma_tri<double>", "column_absmax")}
-    # the kernels line lists nineteen instantiations (the segment sum's two
-    # routes in both types and the sparse product's int64 bounds among
-    # them), each timed in phase 8
-    assert len(smoke.KERNELS) == 19
+    # the kernels line lists twenty-one instantiations (the segment sum's
+    # two routes in both types, the sparse product's int64 bounds and the
+    # sparse Gram kernel in both types among them), each timed in phase 8
+    assert len(smoke.KERNELS) == 21
     assert set(smoke.SANDWICH_TIMES) | {"column_absmax"} <= set(smoke.KERNELS)
 
 
@@ -453,8 +453,9 @@ def test_f32_limit_rejects_tf32():
 def test_sparse_phases_on_cpu(monkeypatch):
     """The sparse phases at a small size: the sparse product against its
     plain version (equal on the CPU), the standalone SparseMatrix against
-    scipy, ``sparse_wide``'s sandwich by row panels (its budgets cut down to
-    the cut-down shape: three panels), and the sparse main path."""
+    scipy, ``sparse_wide``'s sandwich by the sparse Gram kernel's plain
+    version (the budgets cut down to the cut-down shape), and the sparse
+    main path."""
     from tabmat_torch.models import sparse as port_sparse
 
     smoke = _chip_smoke()
@@ -486,7 +487,8 @@ def test_sparse_phases_on_cpu(monkeypatch):
     monkeypatch.setattr(port_sparse, "DENSE_SANDWICH_MAX_COLS", 500)
     monkeypatch.setattr(port_sparse, "DENSE_SANDWICH_MAX_ELEMENTS", 250 * 1000)
     report = smoke.phase_sparse_wide(wide, device=cpu, slab=50)
-    # the row panels against the reference's sandwich; the reference
+    assert set(report["max_abs"]) == {"sparse_gram<double>", "sparse_gram<float>"}
+    # the Gram route against the reference's sandwich; the reference
     # differences a cumsum over its 1.5M within-row pairs here and is off
     # the exact product by the prefix's ulp (ROADMAP C), so 1e-10, as
     # tests/test_torch_sparse.py holds it at the reference's shapes

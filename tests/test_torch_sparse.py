@@ -22,6 +22,7 @@ import tabmat_tpu as tm
 import tabmat_torch as tt
 from tabmat_torch.convert import from_tabmat_tpu
 from tabmat_torch.models import sparse as port_sparse
+from tabmat_torch.ops import sparse_ops
 
 N, K = 2000, 12
 ATOL = 1e-12
@@ -147,8 +148,9 @@ def test_float32_matrix():
 
 def test_sandwich_routes(monkeypatch):
     """The pair plan first; past its budget the densified matrix; past both
-    row panels of the CSR layout, densified on the device and added in
-    order (the reference takes host scipy there)."""
+    the sparse Gram kernel (its plain version here), or for layouts with
+    int64 bounds row panels of the CSR layout, densified on the device and
+    added in order (the reference takes host scipy there)."""
     ref, port = _pair()
     rng = np.random.default_rng(4)
     d = rng.random(N) - 0.3
@@ -167,10 +169,13 @@ def test_sandwich_routes(monkeypatch):
            ref.sandwich(d, rows=np.arange(0, N, 2), cols=cols))
     assert mirror._pair == () and mirror._dense is not None
 
-    # past both: panels of one row (a budget of 0), then of 300 rows
-    for budget in (0, 300 * K):
+    # past both: the Gram kernel, then, with int64 bounds (INT32_MAX cut to
+    # 0), panels of one row (a budget of 0) and of 300 rows
+    for budget, int32_max in ((0, 2**31 - 1), (0, 0), (300 * K, 0)):
         monkeypatch.setattr(port_sparse, "DENSE_SANDWICH_MAX_ELEMENTS", budget)
+        monkeypatch.setattr(sparse_ops, "INT32_MAX", int32_max)
         neither = tt.SparseMatrix(port.array_csc, device="cpu")
+        assert neither._gram_serves(neither.array_csr) == (int32_max > 0)
         _close(neither.sandwich(d), want)
         rows = np.arange(0, N, 2)
         for kw in ({"rows": rows}, {"cols": cols}, {"rows": rows, "cols": cols},
