@@ -12,10 +12,8 @@ Phases, each printed as it runs:
 2. build of the CUDA kernels from ``tabmat_torch/csrc``, one ``nvcc`` per
    source (ten sources), all at once (seconds, ptxas registers and spills);
 3. each kernel against its plain PyTorch version on the card: each of the
-   sandwich kernels through its own wrapper (``sandwich<double>``, off the
-   route, at 1,000,000 x 50 and ``sandwich<float>``, off the route too, at
-   400,000 x 200, both at k in {1, 7, 50, 64, 100, 128, 200};
-   ``sandwich_wide<float>`` at 400,000 x 200 and k in {177, 200, 255, 256,
+   sandwich kernels through its own wrapper (``sandwich_wide<float>`` at
+   400,000 x 200 and k in {177, 200, 255, 256,
    257, 1000, 1024}; ``sandwich_narrow<T>`` at
    4,000,000 x 10 and k in {1, 2, 4, 5, 8, 9, 10, 11, 16, 17, 31, 32}
    (whole rows a thread to 10; past it FP64 tensor-core tiles in f64 and
@@ -55,11 +53,11 @@ Phases, each printed as it runs:
    the standardized sandwich, then ``fit_glm`` for gaussian and poisson in
    both inner precisions, each held against the same algorithm in numpy;
    ``sandwich_mma_tri<double>`` in the f64 steps and ``sandwich_tri<float>``
-   in the f32 steps, and neither tiled ``sandwich<T>``; the f64 sandwich's
+   in the f32 steps; the f64 sandwich's
    relative error against numpy on a line of its own;
 4a. the same checks on the reference bench's ``dense`` design, 4,000,000 x
    10 (``tabmat_tpu/bench/generate.py:70``), built without ``device=``: the
-   narrow sandwich kernel in f64 and f32 steps, and no tiled one;
+   narrow sandwich kernel in f64 and f32 steps;
 4b. the same checks at 400,000 x 160, built without ``device=``, the widest
    design on which the JAX package runs its slice-pair kernel by default:
    the FP64 tensor-core kernel in f64 steps, ``sandwich_tri<float>`` in f32;
@@ -163,10 +161,9 @@ The launch counts are set to 0 just before each main-path phase (4 to 7b,
 each design of 9, 10a, each rank of 10b, and 11) and read just after; each path must launch its
 kernels (the narrow and wide paths and the mixed and sparse paths' 5-column
 dense cell the width dispatch's kernels, the sparse main path both sparse
-products, phase 11 ``spmv<T,int64>`` and no ``spmv<T>``), and no path may
-launch ``sandwich<double>`` or ``sandwich<float>``.  Any failed
+products, phase 11 ``spmv<T,int64>`` and no ``spmv<T>``).  Any failed
 check raises, so the script exits 0 only when every check passed.  The last
-three lines are the ``kernels`` JSON object (twenty-one instantiations),
+three lines are the ``kernels`` JSON object (nineteen instantiations),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 Without CUDA it exits non-zero and prints no result.
 """
@@ -191,18 +188,15 @@ NARROW_N, NARROW_K = 4_000_000, 10
 # kernel by default (128 < k <= 160 and n*k <= 2^26, ozaki.py:136-154)
 WIDE_N, WIDE_K = 400_000, 160
 # past the triangle kernel's widths: the 4c and 4d phases and the times of
-# sandwich_wide<float> and sandwich<float>
+# sandwich_wide<float>
 F32_WIDE_K = 200
 # the narrow kernel's widths where its plan changes: 16-, 8-byte and single
 # row loads of a thread's whole rows (k <= 10), then 2 to 4 column blocks of
 # 8 (f64 tensor-core tiles) or 3 to 8 micro-tiles of 4 a side (f32)
 NARROW_EDGE_KS = (1, 2, 4, 5, 8, 9, 10, 11, 16, 17, 31, 32)
 # sandwich kernel -> (its shapes, the first the full-size one of its row in
-# the kernels line; the widths it is held at on EDGE_N rows); the tiled
-# kernel takes any width, the wrappers launch it directly
+# the kernels line; the widths it is held at on EDGE_N rows)
 SANDWICH_CASES = {
-    "sandwich<double>": (((N, K),), (1, 7, 50, 64, 100, 128, 200)),
-    "sandwich<float>": (((WIDE_N, F32_WIDE_K),), (1, 7, 50, 64, 100, 128, 200)),
     "sandwich_narrow<double>": (((NARROW_N, NARROW_K),), NARROW_EDGE_KS),
     "sandwich_narrow<float>": (((NARROW_N, NARROW_K),), NARROW_EDGE_KS),
     "sandwich_tri<float>": (((N, K), (WIDE_N, WIDE_K)), (33, 50, 64, 100, 160, 176)),
@@ -284,17 +278,13 @@ OP_TOL = 1e-12
 # the window take (pallas_window_take.py:109, :130), segsum<T> both one-hot
 # segment sums (pallas_segsum.py:97, pallas_segsum_bucketed.py:64);
 # sandwich_mma_tri<double> also the unpacked v5 and v3 kernels
-# (pallas_sandwich_v5.py:99, pallas_sandwich_v3.py:135), which
-# sandwich<double> replaced until it left the route; sandwich_wide<float>
-# the f32 kernel past 176, which sandwich<float> was until it left the
-# route; sandwich_narrow<T> the
+# (pallas_sandwich_v5.py:99, pallas_sandwich_v3.py:135); sandwich_wide<float>
+# the f32 kernel past 176; sandwich_narrow<T> the
 # packed modes of v4 and v5, sandwich_mma<double> also the unsliced pair
 # kernel (pallas_pairs.py:29); sparse_gram<T> the sliced pair kernel on the
 # sandwich of a SparseMatrix past the pair plan's and the densified matrix's
 # budgets, which sandwich_mma<double> took on densified row panels before.
 KERNELS = {
-    "sandwich<double>": ("tabmat_torch/csrc/sandwich.cu", "tabmat_tpu/ops/pallas_sandwich_v4.py:141"),
-    "sandwich<float>": ("tabmat_torch/csrc/sandwich.cu", "tabmat_tpu/ops/pallas_kernels.py:34"),
     "sandwich_narrow<double>": ("tabmat_torch/csrc/sandwich_narrow.cu",
                                 "tabmat_tpu/ops/pallas_sandwich_v3.py:316"),
     "sandwich_narrow<float>": ("tabmat_torch/csrc/sandwich_narrow.cu",
@@ -1412,8 +1402,6 @@ def sparse_gram_bound(n: int, k: int, nnz: int, pairs: int, size: int):
 # steps and matrix past the triangle kernel's widths; the tensor-core
 # kernel at the f64 steps of 4b and 4d, the route's edge and a wide design)
 SANDWICH_TIMES = {
-    "sandwich<double>": ((N, K),),
-    "sandwich<float>": ((WIDE_N, F32_WIDE_K),),
     "sandwich_wide<float>": ((WIDE_N, F32_WIDE_K), (1_000_000, 177), (200_000, 1000)),
     "sandwich_narrow<double>": ((NARROW_N, NARROW_K), (N, MIX_KD)),
     "sandwich_narrow<float>": ((NARROW_N, NARROW_K), (N, MIX_KD)),
@@ -1741,9 +1729,6 @@ def phase_bench_cli(device=None, scale: float = 1.0, out_dir: str = "build/bench
         missing = [k for k in CLI_KERNELS[name] if counts[k] == 0]
         if on_card and missing:
             raise AssertionError(f"the CLI's {label} did not launch {missing}")
-        tiled = [k for k in ("sandwich<double>", "sandwich<float>") if counts[k]]
-        if tiled:
-            raise AssertionError(f"the CLI's {label} launched {tiled}, which no route names")
         report["rows"][label], report["launches"][label] = rows, counts
     peaks = {label: next(r.get("peak_mem_bytes") for r in report["rows"][label]
                          if r["operation"] == "transpose-matvec")
@@ -2417,22 +2402,20 @@ def main() -> int:
         main_launches.append(counts)
         return result
 
-    wider = ("sandwich<double>", "sandwich<float>", "sandwich_tri<float>",
-             "sandwich_wide<float>", "sandwich_mma<double>", "sandwich_mma_tri<double>")
-    run_main_path("dense main path", phase_main_path, device, N, K, must_launch=DENSE_KERNELS,
-                  must_not=("sandwich<double>", "sandwich<float>"))
+    wider = ("sandwich_tri<float>", "sandwich_wide<float>", "sandwich_mma<double>",
+             "sandwich_mma_tri<double>")
+    run_main_path("dense main path", phase_main_path, device, N, K, must_launch=DENSE_KERNELS)
     run_main_path("narrow dense path", phase_main_path, None, NARROW_N, NARROW_K,
                   label="[4a] narrow dense path", must_launch=NARROW_KERNELS, must_not=wider)
     run_main_path("wide dense path", phase_main_path, None, WIDE_N, WIDE_K,
                   label="[4b] wide dense path", must_launch=WIDE_KERNELS,
-                  must_not=("sandwich<double>", "sandwich<float>", "sandwich_mma_tri<double>"))
+                  must_not=("sandwich_mma_tri<double>",))
     run_main_path("float32 matrix path", phase_f32_matrix, WIDE_N, F32_WIDE_K,
                   must_launch=("sandwich_wide<float>",),
-                  must_not=("sandwich<float>", "sandwich_tri<float>"))
+                  must_not=("sandwich_tri<float>",))
     run_main_path("f32-wide dense path", phase_main_path, None, WIDE_N, F32_WIDE_K,
                   label="[4d] f32-wide dense path", must_launch=F32_WIDE_KERNELS,
-                  must_not=("sandwich<double>", "sandwich<float>", "sandwich_tri<float>",
-                            "sandwich_mma_tri<double>"))
+                  must_not=("sandwich_tri<float>", "sandwich_mma_tri<double>"))
     mixed = run_main_path("mixed main path", phase_mixed_path, N, MIX_KD, MIX_LEVELS,
                           must_launch=MIXED_KERNELS, must_not=wider)
     run_main_path("standalone sparse phase", phase_sparse_standalone, designs,
@@ -2446,10 +2429,6 @@ def main() -> int:
                            must_launch=SPARSE_KERNELS + NARROW_KERNELS[:2] + SEGSUM_KERNELS)
     frames = run_main_path("dataframe and formula path", phase_frame_path, card, mixed,
                            must_launch=FRAME_KERNELS, must_not=wider)
-    # the tiled kernels are off every route: phase 3 holds them, no path runs them
-    for tiled in ("sandwich<double>", "sandwich<float>"):
-        if any(counts[tiled] for counts in main_launches):
-            raise AssertionError(f"a main path launched {tiled}, which no route names")
 
     times = phase_times(device, N, K, card, mixed, sparse, cases, wide, frames)
     # phase 9 reads the card's memory: free the earlier phases' tensors first
@@ -2461,10 +2440,6 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     multi = phase_multichip(card, block)
-    for counts in multi["launches"]:
-        tiled = [name for name in ("sandwich<double>", "sandwich<float>") if counts[name]]
-        if tiled:
-            raise AssertionError(f"the multi-device path launched {tiled}, which no route names")
     main_launches.extend(multi["launches"])
     del multi
     gc.collect()

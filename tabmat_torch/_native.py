@@ -1,33 +1,16 @@
-"""Host helpers for the categorical and sparse plans, in numpy.
+"""Host helpers for the categorical and sparse plans' keys, in numpy.
 
-The port's own copy of ``counting_argsort``, ``expand_pairs_csr`` and
-``combine_codes`` (``tabmat_tpu/_native/__init__.py:89-115, 131-168,
-222-250``).  The JAX package runs them in a native library with numpy
-fallbacks; the port keeps the numpy versions only.  They run once per
-matrix or design, outside any step.  The JAX package's OpenMP CSR/CSC walks
-(``csr_matvec``, ``csc_tmv``) are not carried: in the port a numpy caller's
-sparse op runs on the card, as every other op does.
+The port's own copy of ``expand_pairs_csr`` and ``combine_codes``
+(``tabmat_tpu/_native/__init__.py:131-168, 222-250``).  The JAX package runs
+them in a native library with numpy fallbacks; the port keeps the numpy
+versions only.  They run once per matrix or design, outside any step.  The
+plans themselves are sorted on their device by ``ops/segments.build_plan``;
+the JAX package's host argsort is not carried, nor its OpenMP CSR/CSC
+walks (``csr_matvec``, ``csc_tmv``): in the port a numpy caller's sparse op
+runs on the card, as every other op does.
 """
 
 import numpy as np
-
-
-def counting_argsort(keys: np.ndarray, num_segments: int):
-    """Stable argsort + segment bounds for bounded int keys.
-
-    Returns ``(perm, bounds)``, ``(n,)`` and ``(num_segments + 1,)``: int32,
-    or int64 past 2³¹ − 1 keys, so that a position never wraps around.
-    Segment ``s`` occupies ``perm[bounds[s]:bounds[s+1]]``.  Negative keys
-    (missing and ``drop_first`` sentinels) sort to the front, before
-    ``bounds[0]``, and fall in no segment.
-    """
-    keys = np.ascontiguousarray(keys, dtype=np.int32)
-    positions = np.int64 if len(keys) > 2**31 - 1 else np.int32
-    perm = np.argsort(keys, kind="stable").astype(positions, copy=False)
-    bounds = np.searchsorted(
-        keys[perm], np.arange(num_segments + 1, dtype=np.int64)
-    ).astype(positions, copy=False)
-    return perm, bounds
 
 
 def expand_pairs_csr(indptr: np.ndarray):

@@ -15,8 +15,9 @@
 // At 1M x 128, 1.03 GB (0.308 ms) against 72 tiles, 18.4 GFLOP (0.275 ms):
 // nearly level.  The FP64 FFMA pipe alone (34 TFLOP/s) needs 0.49 ms for the
 // upper triangle at k = 128, so only the tensor cores fit under the bytes.
-// sandwich.cu's 64 x 64 FFMA tiles compute the full square (3.2x the useful
-// products at k = 50) from scalar, synchronous copies.  So:
+// The tiled kernel this one replaced computed the full square in 64 x 64
+// FFMA tiles (3.2x the useful products at k = 50) from scalar, synchronous
+// copies.  So:
 //
 //   pass 1: a 1-D grid of row splits that fills one wave of resident
 //           blocks (two per SM).  S is cut into m16n8k8 accumulator tiles of

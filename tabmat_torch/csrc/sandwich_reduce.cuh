@@ -1,6 +1,6 @@
-// Second pass of the tiled sandwiches (sandwich.cu, sandwich_mma.cu): sum
-// the first pass's per-split partials of S = X^T diag(d) X in a fixed order
-// and mirror the upper triangle.
+// Second pass of the sandwiches over tile pairs (sandwich_wide.cu,
+// sandwich_mma.cu): sum the first pass's per-split partials of
+// S = X^T diag(d) X in a fixed order and mirror the upper triangle.
 //
 // partial holds splits blocks of k * k; the block of the output tile pair
 // (tile(lo), tile(hi)) wrote the entry (lo, hi), lo <= hi.  One thread per

@@ -9,11 +9,11 @@
 // Bound: at 1M x 50 bytes (200 MB of X: 0.061 ms at 3.35 TB/s, against
 // 0.039 ms for the upper triangle's 2.6 GFLOP at 67 TFLOP/s); at 400k x 160
 // operations (10.4 GFLOP: 0.155 ms, against 0.077 ms for 256 MB of X).  The
-// 64 x 64 tiles of sandwich.cu do 3.2x the useful products at k = 50 and
-// 1.9x at k = 160, and their 4 x 4 micro-tiles read 8 shared values for 16
-// FFMAs: an SM issues four FFMA warp-instructions a cycle but serves one
-// shared wavefront.  Here, as in sandwich_narrow.cu, a block owns the whole
-// upper triangle:
+// 64 x 64 tiles of the tiled kernel this one replaced did 3.2x the useful
+// products at k = 50 and 1.9x at k = 160, and their 4 x 4 micro-tiles read
+// 8 shared values for 16 FFMAs: an SM issues four FFMA warp-instructions a
+// cycle but serves one shared wavefront.  Here, as in sandwich_narrow.cu, a
+// block owns the whole upper triangle:
 //
 //   pass 1: a 1-D grid of row splits that fills one wave of resident
 //           blocks (two per SM, 121-123 registers a thread).  The k x k

@@ -10,10 +10,10 @@
 // Bound by operations at every width it takes: at 400k x 200 the upper
 // triangle's 16.1 GFLOP need 0.241 ms at 67 TFLOP/s against 0.097 ms for
 // the 320 MB of X; at 200k x 1000 0.200 TFLOP, 2.99 ms.  The 64 x 64 tiles
-// of sandwich.cu read 8 shared scalars for 16 FFMAs (an SM issues four FFMA
-// warp-instructions a cycle but serves one shared wavefront), stage rows
-// synchronously with a division, a modulo and a weight load an element, and
-// pad k = 200 to 256 columns a side.  Here:
+// of the tiled kernel this one replaced read 8 shared scalars for 16 FFMAs
+// (an SM issues four FFMA warp-instructions a cycle but serves one shared
+// wavefront), stage rows synchronously with a division, a modulo and a
+// weight load an element, and pad k = 200 to 256 columns a side.  Here:
 //
 //   pass 1: grid (upper-triangular pairs of 128-column tiles) x (row
 //           splits).  The host sizes the splits, pair by pair, and passes

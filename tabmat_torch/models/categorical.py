@@ -391,7 +391,7 @@ class CategoricalMatrix(MatrixBase):
             B = B.index_select(
                 1, torch.as_tensor(np.asarray(R_cols, dtype=np.int64), device=B.device)
             )
-        res = self.plan.sum2d((B * dm[:, None]).contiguous())  # (K, |R_cols|)
+        res = self.plan.sum((B * dm[:, None]).contiguous())  # (K, |R_cols|)
         if L_cols is not None and len(L_cols) < self.shape[1]:
             res = res.index_select(
                 0, torch.as_tensor(np.asarray(L_cols, dtype=np.int64), device=res.device)

@@ -48,10 +48,6 @@ dtype:
   by three cp.async stages of 32 rows, d·x applied once a stage to the
   staged a-strip, four 16-byte shared loads for 64 FFMAs.  Bound by
   operations.
-- ``sandwich<T>`` (``csrc/sandwich.cu``): off the route in both dtypes,
-  reached only through :func:`sandwich_tiled`, the yardstick of the triangle
-  and wide kernels.  A 64 × 64 FFMA tile per upper tile pair, X read once
-  per column tile (once in all for k ≤ 64).
 - ``sandwich_mma<double>`` (``csrc/sandwich_mma.cu``, f64 k > 128):
   replaces ``tabmat_tpu/ops/pallas_pairs.py:_pairs_kernel`` and
   ``:_sliced_pairs_kernel`` (the slice-pair contractions whose f64
@@ -99,7 +95,6 @@ import torch
 # Launch counts by kernel: each rises by one where that kernel is launched,
 # nowhere else.  ``sandwich_launches`` is the sum over the sandwiches.
 launches = {
-    "sandwich<double>": 0, "sandwich<float>": 0,
     "sandwich_narrow<double>": 0, "sandwich_narrow<float>": 0,
     "sandwich_tri<float>": 0, "sandwich_wide<float>": 0, "sandwich_mma<double>": 0,
     "sandwich_mma_tri<double>": 0, "column_absmax": 0,
@@ -107,8 +102,7 @@ launches = {
 
 # Must match csrc/sandwich.cu, csrc/sandwich_narrow.cu, csrc/sandwich_tri.cu,
 # csrc/sandwich_wide.cu, csrc/sandwich_mma.cu and csrc/sandwich_mma_tri.cu.
-TILE = 64  # the output tile of sandwich<T>
-ROWS = 32
+ROWS = 32  # a split of the triangle kernels: whole stages of 32 rows
 NARROW_MAX_K = 32
 NARROW_STAGE_BYTES = 24576  # X and d of one stage of sandwich_narrow<T>, at most
 NARROW_ROW_ALIGN = 4  # its stage rows and splits: copies with 16-byte ends
@@ -143,8 +137,6 @@ _ABSMAX_ARGTYPES = [
 ]
 # kernel -> (source in csrc/, C function)
 _KERNELS = {
-    "sandwich<double>": ("sandwich", "tabmat_sandwich_f64"),
-    "sandwich<float>": ("sandwich", "tabmat_sandwich_f32"),
     "sandwich_narrow<double>": ("sandwich_narrow", "tabmat_sandwich_narrow_f64"),
     "sandwich_narrow<float>": ("sandwich_narrow", "tabmat_sandwich_narrow_f32"),
     "sandwich_tri<float>": ("sandwich_tri", "tabmat_sandwich_tri_f32"),
@@ -214,23 +206,6 @@ def _split_rows(n: int, splits: int, multiple: int):
     return -(-max(n, 1) // rows_per_split), rows_per_split
 
 
-def launch_plan(n: int, k: int, n_sm: int, blocks_per_sm: int):
-    """Row split of the first pass of ``sandwich<T>``:
-    ``(splits, rows_per_split)``.
-
-    The grid of 64 × 64 upper tile pairs × splits fills one wave of
-    ``n_sm * blocks_per_sm`` resident blocks, never one block more: every
-    block does the same work, so one extra block on one SM costs a whole
-    block's time, and at the main path's k = 50 more waves were slower
-    (PERF.md).  Once the tile pairs alone fill the wave there is one split,
-    so the (splits, k, k) scratch stays near k².  Each split is a whole
-    number of ``ROWS``-row stages.
-    """
-    nt = -(-k // TILE)
-    pairs = nt * (nt + 1) // 2
-    return _split_rows(n, n_sm * blocks_per_sm // pairs, ROWS)
-
-
 def narrow_stage_rows(k: int, size: int) -> int:
     """Rows a stage of ``sandwich_narrow<T>`` (``stage_rows`` in the
     source): the most whose X and d fit ``NARROW_STAGE_BYTES``, a multiple
@@ -269,7 +244,7 @@ def wide_plan(n: int, k: int, n_sm: int, blocks_per_sm: int):
     scheduler about as long; ``sched_rows`` (:func:`_least_sched_rows`) is
     the least that keeps the splits holding rows, summed over the pairs,
     within one wave of ``n_sm * blocks_per_sm`` resident blocks (one split
-    each once the pairs alone fill it, as in :func:`launch_plan`).
+    each once the pairs alone fill it).
     """
     costs = tuple(-(-a // 4) for a in wide_active_warps(k))
     return _cost_plan(max(n, 1), costs, n_sm * blocks_per_sm, "sandwich_wide")
@@ -608,11 +583,9 @@ def first_pass_args(source: str, n: int, k: int, n_sm: int, blocks_per_sm: int, 
         splits, rows_per_split = tri_plan(n, n_sm, blocks_per_sm)
         size = (tri_partial_size if source == "sandwich_tri" else mma_tri_partial_size)(k)
         return splits, size, rows_per_split
-    if source == "sandwich_narrow":  # its partials: the k(k+1)/2 upper entries
-        splits, rows_per_split = narrow_plan(n, n_sm, blocks_per_sm)
-        return splits, k * (k + 1) // 2, rows_per_split
-    splits, rows_per_split = launch_plan(n, k, n_sm, blocks_per_sm)
-    return splits, k * k, rows_per_split
+    # sandwich_narrow: its partials are the k(k+1)/2 upper entries
+    splits, rows_per_split = narrow_plan(n, n_sm, blocks_per_sm)
+    return splits, k * (k + 1) // 2, rows_per_split
 
 
 def sandwich(X: torch.Tensor, d: torch.Tensor, out=None) -> torch.Tensor:
@@ -626,13 +599,6 @@ def sandwich(X: torch.Tensor, d: torch.Tensor, out=None) -> torch.Tensor:
     """
     _check(X, d, (torch.float64, torch.float32))
     return _run_sandwich(route(X.shape[1], X.dtype), X, d, out)
-
-
-def sandwich_tiled(X: torch.Tensor, d: torch.Tensor, out=None) -> torch.Tensor:
-    """:func:`sandwich` through ``sandwich<T>`` (64 × 64 FFMA tiles), any k;
-    off the route, kept as the yardstick of the triangle and wide kernels."""
-    _check(X, d, (torch.float64, torch.float32))
-    return _run_sandwich(_instance("sandwich", X.dtype), X, d, out)
 
 
 def sandwich_narrow(X: torch.Tensor, d: torch.Tensor, out=None) -> torch.Tensor:
@@ -680,7 +646,6 @@ def sandwich_mma_tri(X: torch.Tensor, d: torch.Tensor, out=None) -> torch.Tensor
 
 # the wrapper of each sandwich kernel, for callers that name the kernel
 KERNEL_WRAPPERS = {
-    "sandwich<double>": sandwich_tiled, "sandwich<float>": sandwich_tiled,
     "sandwich_narrow<double>": sandwich_narrow, "sandwich_narrow<float>": sandwich_narrow,
     "sandwich_tri<float>": sandwich_tri, "sandwich_wide<float>": sandwich_wide,
     "sandwich_mma<double>": sandwich_mma, "sandwich_mma_tri<double>": sandwich_mma_tri,
@@ -721,7 +686,9 @@ def _library(source: str):
                      _NARROW_ARGTYPES if src == "sandwich_narrow" else _SANDWICH_ARGTYPES)
             for name, (src, symbol) in _KERNELS.items() if src == source
         }
-        signatures[f"tabmat_{source}_blocks_per_sm"] = [ctypes.c_int, ctypes.c_void_p]
+        if any(_KERNELS[name][0] == source for name in KERNEL_WRAPPERS):
+            # a sandwich's source: its occupancy query sizes the row splits
+            signatures[f"tabmat_{source}_blocks_per_sm"] = [ctypes.c_int, ctypes.c_void_p]
         _libs[source] = _build.bind(source, signatures)
     return _libs[source]
 

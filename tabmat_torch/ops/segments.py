@@ -49,11 +49,8 @@ class SegmentPlan:
         return self.perm.device
 
     def sum(self, values: torch.Tensor) -> torch.Tensor:
-        """Segment sum of ``values`` (n,) → (num_segments,)."""
-        return segsum_kernel.segsum(values, self)
-
-    def sum2d(self, values: torch.Tensor) -> torch.Tensor:
-        """Row-wise segment sum of ``values`` (n, m) → (num_segments, m)."""
+        """Segment sum of ``values`` (n,) → (num_segments,), or row-wise of
+        ``values`` (n, m) → (num_segments, m)."""
         return segsum_kernel.segsum(values, self)
 
 
@@ -64,8 +61,11 @@ def build_plan(keys, num_segments: int, device) -> SegmentPlan:
     kept there), or a host array or tensor, uploaded once.  Keys outside
     ``[0, num_segments)`` fall in no segment: they are mapped to
     ``num_segments``, which sorts after every valid key.  A stable sort has
-    one answer, so the plan is the host argsort's
-    (``_native.counting_argsort``) bit for bit.
+    one answer, so the plan is the JAX package's host argsort
+    (``tabmat_tpu/_native``) bit for bit, its invalid keys dropped.  Every
+    sorted plan of the port is built here: the categoricals', their
+    crosses', the sparse pair and (code, column) plans and the mixed
+    design's.
     """
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:

@@ -5,7 +5,7 @@ builds around it (``models/sparse.py:51-69, 178-213``,
 ``parallel/design.py:136-174``).  A CSR matrix is a sorted segment layout
 with one segment per row (the column indices are the source rows of ``v``),
 a CSC matrix one with a segment per column, so every sparse reduction is
-:func:`~.spmv_kernel.spmv` over a layout built once on the host:
+:func:`~.spmv_kernel.spmv` over a layout built once:
 
 - ``csr_matvec``: ``X @ v`` (1-D or 2-D ``v``; the reference's
   ``csr_matmat`` is the same call);
@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from .. import _native
-from .segments import SegmentPlan
+from .segments import SegmentPlan, build_plan
 from .spmv_kernel import spmv
 
 INT32_MAX = 2**31 - 1
@@ -119,7 +119,8 @@ def pair_plan(csr, device):
     is one segment sum over the within-row pairs keyed by ``i·k + j``.  Only
     the pairs with ``i ≤ j`` are kept (:func:`pair_sandwich` mirrors them), so
     the assembled matrix is exactly symmetric.  The products ``prod`` and
-    their rows (``plan.perm``) are sorted by key once, here.  A
+    their rows (``plan.perm``) are sorted by key once, here, on ``device``
+    (:func:`_sorted_by_key`).  A
     ``SparseMatrix`` builds it only under ``PAIR_SANDWICH_MAX_PAIRS``, so
     its bounds are int32 there; they follow :func:`bounds_dtype` all the
     same.
@@ -131,14 +132,23 @@ def pair_plan(csr, device):
     ca, cb = cols[ia], cols[ib]
     upper = ca <= cb
     ia, ib, row = ia[upper], ib[upper], row[upper]
-    perm, bounds = _native.counting_argsort(ca[upper] * k + cb[upper], k * k)
     data = np.asarray(csr.data)
-    plan = SegmentPlan(
-        torch.as_tensor(row[perm].astype(np.int32), device=device),
-        torch.as_tensor(bounds.astype(bounds_dtype(len(perm))), device=device),
-        csr.shape[0],
-    )
-    return torch.as_tensor((data[ia] * data[ib])[perm], device=device), plan
+    return _sorted_by_key(ca[upper] * k + cb[upper], k * k, data[ia] * data[ib], row,
+                          csr.shape[0], device)
+
+
+def _sorted_by_key(keys: np.ndarray, n_segments: int, values: np.ndarray, rows: np.ndarray,
+                   n_rows: int, device):
+    """``(values, plan)`` sorted by ``keys`` on ``device``: the order and
+    bounds of :func:`~.segments.build_plan` (keys outside ``[0,
+    n_segments)`` dropped), ``values`` and ``rows`` gathered there by that
+    order; ``plan.perm`` the rows as int32, its bounds in
+    :func:`bounds_dtype` of the elements kept."""
+    order = build_plan(keys, n_segments, device)
+    values = torch.as_tensor(values, device=order.device).index_select(0, order.perm)
+    rows = torch.as_tensor(rows.astype(np.int32), device=order.device).index_select(0, order.perm)
+    bounds = order.bounds.to(_TORCH_INT[bounds_dtype(rows.shape[0])])
+    return values, SegmentPlan(rows, bounds, n_rows)
 
 
 def pair_sandwich(prod: torch.Tensor, plan: SegmentPlan, k: int, w: torch.Tensor) -> torch.Tensor:
@@ -190,7 +200,8 @@ def code_column_plan(codes: np.ndarray, n_codes: int, n_rows: int, csc, device,
     ``[0, n_codes)`` is in no column.  Every nonzero ``(r, j)`` of ``X``
     meets each code vector once, at key ``codes[c·n + r]·k + j``: one segment
     per cell of the (n_codes, k) result, the data ``a`` and rows
-    (``plan.perm``) sorted by key once, here.  With ``compress`` the
+    (``plan.perm``) sorted by key once, here, on ``device``
+    (:func:`_sorted_by_key`).  With ``compress`` the
     segments are only the observed keys, ``uniq`` their flat cells (else
     None).  The bounds follow :func:`bounds_dtype` of the plan's elements
     (``C`` times the nonzeros).
@@ -213,14 +224,8 @@ def code_column_plan(codes: np.ndarray, n_codes: int, n_rows: int, csc, device,
     else:
         _segments("cells", n_cells)
         n_segments = n_cells
-    perm, bounds = _native.counting_argsort(keys, n_segments)
-    perm = perm[bounds[0] :]
-    plan = SegmentPlan(
-        torch.as_tensor(rows[perm].astype(np.int32), device=device),
-        torch.as_tensor((bounds - bounds[0]).astype(bounds_dtype(len(perm))), device=device),
-        n_rows,
-    )
-    a = torch.as_tensor(np.tile(np.asarray(csc.data), C)[perm], device=device)
+    a, plan = _sorted_by_key(keys, n_segments, np.tile(np.asarray(csc.data), C), rows, n_rows,
+                             device)
     return a, plan, uniq
 
 

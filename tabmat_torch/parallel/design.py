@@ -457,7 +457,7 @@ class DeviceDesign:
             if cat is not None:
                 if dense is not None:
                     with _trace.span("sandwich.cat_dense"):
-                        cells["cat", "dense"] = cat.plan.sum2d((X * w[:, None]).contiguous())
+                        cells["cat", "dense"] = cat.plan.sum((X * w[:, None]).contiguous())
                 with _trace.span("sandwich.cat"):
                     cells["cat", "cat"] = cat.sandwich(w)
 

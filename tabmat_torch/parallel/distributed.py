@@ -25,7 +25,7 @@ import torch
 
 from .._config import resolve_device
 from ..ops import gather_kernel, sparse_ops
-from ..ops.segments import SegmentPlan
+from ..ops.segments import SegmentPlan, build_plan
 from .mesh import all_reduce, mesh_device, row_range
 
 
@@ -119,11 +119,11 @@ def mixed_irls_step(
 
 def _mixed_design(dense, sp, codes: np.ndarray, kc: int, device) -> MixedDesign:
     """The MixedDesign of a dense block, a scipy CSR block and codes in
-    ``[0, kc)``, on ``device``: the CSC and the codes' stable argsort and
-    bounds are built here, as the reference builds them."""
+    ``[0, kc)``, on ``device``: the CSC, and the codes' plan by
+    :func:`~..ops.segments.build_plan` (the reference's stable argsort and
+    bounds, bit for bit)."""
     csc = sp.tocsc()
-    perm = np.argsort(codes, kind="stable").astype(np.int32)
-    bounds = np.searchsorted(codes[perm], np.arange(kc + 1)).astype(np.int32)
+    plan = build_plan(codes, kc, device)
     arrays = dict(
         dense=dense,
         sp_csr_data=sp.data,
@@ -133,8 +133,8 @@ def _mixed_design(dense, sp, codes: np.ndarray, kc: int, device) -> MixedDesign:
         sp_csc_rows=csc.indices.astype(np.int32),
         sp_csc_bounds=csc.indptr.astype(np.int32),
         cat_codes=codes,
-        cat_perm=perm,
-        cat_bounds=bounds,
+        cat_perm=plan.perm,
+        cat_bounds=plan.bounds,
     )
     return MixedDesign(**{name: torch.as_tensor(a, device=device) for name, a in arrays.items()})
 

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import tabmat_tpu as tm
+from tabmat_tpu.ops import segments as tpu_segments
 
 import tabmat_torch as tt
 from tabmat_torch import _native
@@ -192,7 +193,8 @@ def test_cross_plan_is_the_plan_of_combine_codes(names, compressed, monkeypatch)
         np.testing.assert_array_equal(uniq.numpy(), cells)
     else:
         assert uniq is None
-    perm, bounds = _native.counting_argsort(keys, W)
+    ref = tpu_segments.build_plan(keys, W)  # the JAX package's host argsort
+    perm, bounds = np.asarray(ref.perm), np.asarray(ref.bounds)
     np.testing.assert_array_equal(plan.perm.numpy(), perm[bounds[0] : bounds[-1]])
     np.testing.assert_array_equal(plan.bounds.numpy(), bounds - bounds[0])
     assert plan.perm.dtype == plan.bounds.dtype == torch.int32

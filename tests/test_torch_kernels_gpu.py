@@ -280,7 +280,7 @@ def test_sparse_sandwich_past_both_budgets_on_card(cuda, monkeypatch):
     rows, cols = np.arange(0, 10_007, 2), np.arange(0, 700, 7)
     sub = Xs.tocsr()[rows][:, cols]
     sub_ref = (sub.T @ sps.csr_matrix(sub.multiply(d[rows, None]))).toarray()
-    got = m.sandwich(d, rows=rows, cols=cols)  # 100 columns: the tiled kernel
+    got = m.sandwich(d, rows=rows, cols=cols)  # 100 columns: the f64 triangle kernel
     assert np.abs(got - sub_ref).max() / np.abs(sub_ref).max() <= 1e-13
 
 
@@ -738,22 +738,23 @@ def test_sparse_design_past_the_limit_on_card(cuda, monkeypatch):
 @pytest.mark.parametrize("W", [1, 22, 1000, 10**6])
 def test_plan_sorted_on_the_card_is_the_host_plan(cuda, W):
     """``build_plan``'s stable sort on the card, from host keys, int64 or
-    int32 keys on the card, gives the host argsort's plan bit for bit, and
-    a categorical's cross plan, its keys combined on the card, the plan of
+    int32 keys on the card, gives the plan of its sort on the CPU (which the
+    CPU tests hold to the JAX package's host argsort) bit for bit, and a
+    categorical's cross plan, its keys combined on the card, the plan of
     ``_native.combine_codes``'s keys."""
     from tabmat_torch import _native
     from tabmat_torch.ops.segments import build_plan
 
     rng = np.random.default_rng(W)
     keys = rng.integers(-1, W + 2, 678_013)
-    perm, bounds = _native.counting_argsort(keys, W)
+    host = build_plan(keys, W, "cpu")
     for given in (keys, torch.as_tensor(keys, device=cuda),
                   torch.as_tensor(keys.astype(np.int32), device=cuda)):
         plan = build_plan(given, W, cuda)
         assert plan.perm.device == plan.bounds.device == cuda
         assert plan.perm.dtype == plan.bounds.dtype == torch.int32
-        assert np.array_equal(plan.perm.cpu().numpy(), perm[bounds[0] : bounds[-1]])
-        assert np.array_equal(plan.bounds.cpu().numpy(), bounds - bounds[0])
+        assert torch.equal(plan.perm.cpu(), host.perm)
+        assert torch.equal(plan.bounds.cpu(), host.bounds)
     k2 = 1000 if W > 1000 else 7
     a = tt.CategoricalMatrix(rng.integers(-1, 1000, 678_013), categories=np.arange(1000),
                              drop_first=True, cat_missing_method="zero", device=cuda)
@@ -761,6 +762,6 @@ def test_plan_sorted_on_the_card_is_the_host_plan(cuda, W):
                              cat_missing_method="zero", device=cuda)
     cross, _ = a._cross_plan(b)
     combined = _native.combine_codes(a._eff_codes_np, b._eff_codes_np, b.shape[1])
-    perm, bounds = _native.counting_argsort(combined, a.shape[1] * b.shape[1])
-    assert np.array_equal(cross.perm.cpu().numpy(), perm[bounds[0] : bounds[-1]])
-    assert np.array_equal(cross.bounds.cpu().numpy(), bounds - bounds[0])
+    host = build_plan(combined, a.shape[1] * b.shape[1], "cpu")
+    assert torch.equal(cross.perm.cpu(), host.perm)
+    assert torch.equal(cross.bounds.cpu(), host.bounds)

@@ -137,32 +137,6 @@ def test_wrapper_rejects(X, d, err):
         sk.sandwich(X, d)
 
 
-@pytest.mark.parametrize(
-    "n,k,n_sm,per_sm",
-    [
-        (1_000_000, 50, 132, 3),
-        (100_003, 200, 132, 3),
-        (17, 65, 132, 4),
-        (10**9, 5, 132, 3),
-        (1, 1, 4, 1),
-        (4096, 4096, 132, 3),
-        (10**7, 50, 132, 1),
-    ],
-)
-def test_launch_plan_fills_whole_waves(n, k, n_sm, per_sm):
-    splits, rps = sk.launch_plan(n, k, n_sm, per_sm)
-    nt = -(-k // sk.TILE)
-    pairs = nt * (nt + 1) // 2
-    assert rps % sk.ROWS == 0
-    assert 1 <= splits <= sk.MAX_SPLITS
-    assert (splits - 1) * rps < n <= splits * rps  # every split has rows
-    # never a block beyond the resident wave (unless one split per pair
-    # already overfills it)
-    assert pairs * splits <= max(n_sm * per_sm, pairs)
-    if n >= 100 * n_sm * per_sm * sk.ROWS and pairs == 1:
-        assert splits >= 0.9 * n_sm * per_sm  # and the wave is nearly full
-
-
 @pytest.mark.parametrize("n,k", [(1_000_000, 50), (100_003, 200), (5, 3), (10**9, 1)])
 def test_absmax_plan_covers_rows_in_one_wave(n, k):
     splits, rps = sk.absmax_plan(n, k, 132)
@@ -235,7 +209,8 @@ def test_cpu_column_absmax_launches_nothing():
 def test_launch_counts_reset_and_sum():
     saved = dict(sk.launches)
     try:
-        sk.launches.update({"sandwich<double>": 2, "sandwich<float>": 3, "column_absmax": 4})
+        sk.launches.update({"sandwich_narrow<double>": 2, "sandwich_mma<double>": 3,
+                            "column_absmax": 4})
         assert sk.sandwich_launches == 5
         sk.reset_launch_counts()
         assert set(sk.launches.values()) == {0} and sk.sandwich_launches == 0

@@ -151,7 +151,7 @@ def test_route(k, dtype):
 
 @pytest.mark.parametrize("n,n_sm,per_sm", [(4_000_000, 132, 3), (1_000_000, 132, 2), (17, 4, 1),
                                           (10**9, 132, 3), (1_000_000, 132, 1), (1, 132, 1),
-                                          (100_003, 132, 1), (4_000_000, 132, 1)])
+                                          (100_003, 132, 1), (4_000_000, 132, 1), (1, 4, 1)])
 def test_narrow_plan_fills_one_wave(n, n_sm, per_sm):
     """One wave of splits, never more; each a multiple of 4 rows, so its
     stages start on 16 bytes; the splits cover the rows exactly once."""
@@ -210,7 +210,7 @@ def test_narrow_first_pass_args(k):
     assert size == k * (k + 1) // 2
 
 
-@pytest.mark.parametrize("n", [1, 100_003, 1_000_000, 4_000_000])
+@pytest.mark.parametrize("n", [1, 100_003, 1_000_000, 4_000_000, 10**9])
 @pytest.mark.parametrize("n_sm,per_sm", [(132, 2), (132, 1), (4, 1)])
 def test_tri_plan_fills_one_wave(n, n_sm, per_sm):
     """The row split of both triangle kernels, ``sandwich_tri<float>`` and
@@ -527,7 +527,7 @@ def test_route_rejects_other_dtypes():
         sk.route(10, torch.float16)
 
 
-@pytest.mark.parametrize("wrapper", [sk.sandwich, sk.sandwich_tiled, sk.sandwich_narrow,
+@pytest.mark.parametrize("wrapper", [sk.sandwich, sk.sandwich_narrow,
                                      sk.sandwich_mma, sk.sandwich_tri, sk.sandwich_mma_tri,
                                      sk.sandwich_wide])
 def test_wrappers_add_into_out_on_cpu(wrapper):

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 
 from functools import partial
 
+from tabmat_tpu import _native as tpu_native
 from tabmat_tpu.ops import categorical_ops as tpu_cat_ops
 from tabmat_tpu.ops import pallas_gather
 from tabmat_tpu.ops import pallas_segsum_bucketed as psb
@@ -27,7 +28,7 @@ from tabmat_tpu.ops import segments as tpu_segments
 from tabmat_tpu.ops.pallas_segsum import build_codes_col
 
 from tabmat_torch import _native
-from tabmat_torch.ops import categorical_ops, gather_kernel, segsum_kernel
+from tabmat_torch.ops import categorical_ops, gather_kernel, segsum_kernel, sparse_ops
 from tabmat_torch.ops.segments import build_plan, stack
 
 CPU = torch.device("cpu")
@@ -37,6 +38,15 @@ def _keys(rng, n, W, missing=0.1):
     keys = rng.integers(0, W, n)
     keys[rng.random(n) < missing] = -1
     return keys
+
+
+def _host_plan(keys, W):
+    """The JAX package's plan of ``keys``, its host argsort
+    (``tabmat_tpu/_native``), with its invalid keys dropped, as the port's
+    plans hold them: ``(perm, bounds)``, int32 both."""
+    ref = tpu_segments.build_plan(keys, W)
+    perm, bounds = np.asarray(ref.perm), np.asarray(ref.bounds)
+    return perm[bounds[0] : bounds[-1]], bounds - bounds[0]
 
 
 @pytest.mark.parametrize("W", [1, 2, 7, 11, 300, 2000])
@@ -50,8 +60,11 @@ def test_segment_plan_matches_reference(W, m):
         v = rng.standard_normal(n)
         got, want = port.sum(torch.tensor(v)), ref.sum(jnp.asarray(v))
     else:
+        # the port's sum takes the (n, m) values at once; the reference's
+        # segment sum, one column at a time
         v = rng.standard_normal((n, m))
-        got, want = port.sum2d(torch.tensor(v)), ref.sum2d(jnp.asarray(v))
+        got = port.sum(torch.tensor(v))
+        want = jnp.stack([ref.sum(jnp.asarray(v[:, j])) for j in range(m)], axis=1)
     assert got.shape == want.shape
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-12)
 
@@ -102,13 +115,7 @@ def test_device_plan_equals_host_plan(case, source, device):
     dev = torch.device(device, 0) if device == "cuda" else CPU
     plans, want_perm, want_bounds, offset = [], [], [], 0
     for keys, W in PLAN_CASES[case]:
-        perm, bounds = _native.counting_argsort(keys, W)
-        perm, bounds = perm[bounds[0] : bounds[-1]], bounds - bounds[0]
-        ref = tpu_segments.build_plan(keys, W)
-        ref_bounds = np.asarray(ref.bounds)
-        np.testing.assert_array_equal(
-            np.asarray(ref.perm)[ref_bounds[0] : ref_bounds[-1]], perm)
-        np.testing.assert_array_equal(ref_bounds - ref_bounds[0], bounds)
+        perm, bounds = _host_plan(keys, W)
         given = torch.as_tensor(keys, device=dev) if source == "device" else keys
         plan = build_plan(given, W, dev)
         assert plan.perm.device == plan.bounds.device == dev
@@ -138,19 +145,117 @@ def test_stacked_plan_is_the_plans_in_turn():
 
 
 def test_native_helpers_match_reference():
-    from tabmat_tpu import _native as tpu_native
-
     rng = np.random.default_rng(5)
     keys = _keys(rng, 3000, 50).astype(np.int32)
-    for got, want in zip(_native.counting_argsort(keys, 50),
-                         tpu_native.counting_argsort(keys, 50)):
-        assert got.dtype == np.int32
-        np.testing.assert_array_equal(got, want)
+    plan = build_plan(keys, 50, CPU)
+    for got, want in zip((plan.perm, plan.bounds), _host_plan(keys, 50)):
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
     a, b = _keys(rng, 3000, 9).astype(np.int32), _keys(rng, 3000, 13).astype(np.int32)
     np.testing.assert_array_equal(_native.combine_codes(a, b, 13),
                                   tpu_native.combine_codes(a, b, 13))
     with pytest.raises(OverflowError):
         _native.combine_codes(np.array([70_000], np.int32), np.array([0], np.int32), 40_000)
+
+
+def _pair_csr(case):
+    """A CSR matrix of the pair plan's cases: a third of its rows empty, one
+    nonzero a row, or a row that stores one column twice (scipy keeps a
+    CSR's duplicates as given)."""
+    from scipy import sparse as sps
+
+    rng = np.random.default_rng(6)
+    if case == "duplicate":
+        return sps.csr_matrix((np.array([1.0, 2.0, -3.0, 0.5, 4.0, 7.0]),
+                               np.array([0, 2, 2, 1, 3, 0]), np.array([0, 1, 5, 5, 6])),
+                              shape=(4, 4))
+    if case == "one_per_row":
+        n, k, counts = 200, 9, np.ones(200, np.int64)
+    else:
+        n, k, counts = 300, 12, rng.integers(1, 6, 300)
+        counts[::3] = 0
+    indices = np.concatenate([np.sort(rng.choice(k, c, replace=False)) for c in counts])
+    return sps.csr_matrix((rng.standard_normal(counts.sum()), indices,
+                           np.concatenate([[0], np.cumsum(counts)])), shape=(n, k))
+
+
+@pytest.mark.parametrize("case", ["empty_rows", "one_per_row", "duplicate", "int64_bounds"])
+def test_pair_plan_is_the_host_argsorts(monkeypatch, case):
+    """The sparse pair plan, sorted by ``build_plan`` on the plan's device:
+    the JAX package's host argsort of the upper pairs' keys, bit for bit in
+    the products, the rows and the bounds, values and dtypes; int64 bounds
+    past ``INT32_MAX`` elements."""
+    if case == "int64_bounds":
+        monkeypatch.setattr(sparse_ops, "INT32_MAX", 0)
+    csr = _pair_csr("empty_rows" if case == "int64_bounds" else case)
+    n, k = csr.shape
+    prod, plan = sparse_ops.pair_plan(csr, CPU)
+    ia, ib, row = tpu_native.expand_pairs_csr(csr.indptr)
+    ca, cb = csr.indices[ia].astype(np.int64), csr.indices[ib].astype(np.int64)
+    upper = ca <= cb
+    perm, bounds = _host_plan(ca[upper] * k + cb[upper], k * k)
+    assert prod.dtype == torch.float64 and plan.perm.dtype == torch.int32
+    assert plan.bounds.dtype == (torch.int64 if case == "int64_bounds" else torch.int32)
+    np.testing.assert_array_equal(prod.numpy(), (csr.data[ia] * csr.data[ib])[upper][perm])
+    np.testing.assert_array_equal(plan.perm.numpy(), row[upper][perm])
+    np.testing.assert_array_equal(plan.bounds.numpy(), bounds)
+    assert (plan.num_segments, plan.n_rows) == (k * k, n)
+
+
+@pytest.mark.parametrize("compress", [False, True], ids=["cells", "compressed"])
+@pytest.mark.parametrize("C", [1, 2])
+def test_code_column_plan_is_the_host_argsorts(compress, C):
+    """The (code, column) plan of ``C`` stacked code vectors with codes
+    below 0 and past ``n_codes`` (in no column), sorted by ``build_plan``:
+    the JAX package's host argsort of its keys, bit for bit in the data, the
+    rows and the bounds, values and dtypes; compressed, over the observed
+    cells only."""
+    from scipy import sparse as sps
+
+    rng = np.random.default_rng(7 + C)
+    n, k, n_codes = 400, 6, 5
+    csc = sps.random(n, k, density=0.3, format="csc", random_state=rng)
+    codes = rng.integers(-1, n_codes + 2, C * n)
+    a, plan, uniq = sparse_ops.code_column_plan(codes, n_codes, n, csc, CPU, compress=compress)
+    rows = np.tile(csc.indices.astype(np.int64), C)
+    cols = np.tile(np.repeat(np.arange(k), np.diff(csc.indptr)), C)
+    code = codes[np.repeat(np.arange(C) * n, csc.nnz) + rows]
+    keys = np.where((code >= 0) & (code < n_codes), code * k + cols, -1)
+    W = n_codes * k
+    if compress:
+        valid = keys >= 0
+        cells, inverse = np.unique(keys[valid], return_inverse=True)
+        keys[valid] = inverse
+        W = len(cells)
+        np.testing.assert_array_equal(uniq.numpy(), cells)
+    else:
+        assert uniq is None
+    perm, bounds = _host_plan(keys, W)
+    assert a.dtype == torch.float64 and plan.perm.dtype == plan.bounds.dtype == torch.int32
+    np.testing.assert_array_equal(a.numpy(), np.tile(csc.data, C)[perm])
+    np.testing.assert_array_equal(plan.perm.numpy(), rows[perm])
+    np.testing.assert_array_equal(plan.bounds.numpy(), bounds)
+    assert (plan.num_segments, plan.n_rows) == (W, n)
+
+
+@pytest.mark.parametrize("kc", [1, 11, 300])
+def test_mixed_design_plan_is_the_host_argsorts(kc):
+    """The mixed design's ``cat_perm`` and ``cat_bounds``, built by
+    ``build_plan``: the JAX package's host argsort of its codes, bit for
+    bit, int32 both (at 300 levels on 1,000 rows, some segments empty)."""
+    from scipy import sparse as sps
+
+    from tabmat_torch.parallel import distributed
+
+    rng = np.random.default_rng(kc)
+    n = 1000
+    codes = rng.integers(0, kc, n).astype(np.int32)
+    sp = sps.random(n, 4, density=0.2, format="csr", random_state=rng)
+    dz = distributed._mixed_design(rng.standard_normal((n, 3)), sp, codes, kc, CPU)
+    perm, bounds = _host_plan(codes, kc)
+    assert dz.cat_perm.dtype == dz.cat_bounds.dtype == torch.int32
+    np.testing.assert_array_equal(dz.cat_perm.numpy(), perm)
+    np.testing.assert_array_equal(dz.cat_bounds.numpy(), bounds)
 
 
 @pytest.mark.parametrize(

@@ -199,13 +199,16 @@ def test_each_route_has_its_span_under_the_sandwich(design, inputs, monkeypatch,
     _, taken = _record(_matrix(X), inputs["d"])
     spans = taken["spans"]
     assert spans[0]["name"] == "sparse.sandwich" and spans[0]["parent"] is None
-    assert _children(spans, 0) == [f"sparse.sandwich.{route}"]
+    # the first sandwich's route decision builds the pair plan where it fits
+    built = ["plan.build"] if route == "pair" else []
+    assert _children(spans, 0) == built + [f"sparse.sandwich.{route}"]
     for s in spans[1:]:
         p = spans[s["parent"]]
         assert p["start_ns"] <= s["start_ns"] <= s["end_ns"] <= p["end_ns"]
         assert s["root"] == spans[0]["root"]
     if route != "panels":
-        assert len(spans) == 2 and "sparse_panels" not in taken["counters"]
+        assert len(spans) == 2 + len(built) and "sparse_panels" not in taken["counters"]
+    assert taken["counters"].get("plans_built", 0) == len(built)
     assert taken["counters"].get("sparse_gram", 0) == (route == "gram")
 
 

@@ -22,6 +22,9 @@ from tabmat_torch.parallel.design import DeviceDesign
 
 FORMULA = "y ~ x + s + a + b"
 CATEGORICALS = 2  # a and b: one plan each and one cross plan for the pair
+# s: its pair plan, kept on its SparseMatrix, and a (code, column) plan in
+# each of the two designs (the fit's and the matrix API's)
+SPARSE_PLANS = 3
 
 
 @pytest.fixture(autouse=True)
@@ -88,7 +91,7 @@ PARENTS = {
     "from_matrix.dense": {"from_matrix"},
     "from_matrix.cat": {"from_matrix"},
     "from_matrix.sparse": {"from_matrix"},
-    "plan.build": {"from_matrix.cat"},
+    "plan.build": {"from_matrix.cat", "from_matrix.sparse"},
     "fit": {None},
     "fit.converge": {"fit"},
     "fit.epoch": {"fit"},
@@ -137,10 +140,11 @@ def test_no_span_outside_the_table(traced):
 
 
 @pytest.mark.parametrize("name,expected", [
-    # two categoricals: a plan each and one cross plan; no plan is rebuilt by
-    # the matrix API's own design, which reuses the matrices' plans
-    ("plans_built", CATEGORICALS + CATEGORICALS * (CATEGORICALS - 1) // 2),
-    # every one of them from the codes already on the plan's device
+    # two categoricals: a plan each and one cross plan, which the matrix
+    # API's own design reuses; and the sparse block's plans
+    ("plans_built", CATEGORICALS + CATEGORICALS * (CATEGORICALS - 1) // 2 + SPARSE_PLANS),
+    # the categoricals' from the codes already on the plan's device; the
+    # sparse plans' keys are made on the host
     ("plans_from_device_keys", CATEGORICALS + CATEGORICALS * (CATEGORICALS - 1) // 2),
     # the plain CPU routes build no kernel table
     ("tables_built", 0),

@@ -4,15 +4,14 @@
 Run from the repository root on a machine with a card:
 
     python3 tools/time_sandwich.py [--reps 20] [--parent-cu PATH]
-                                   [--parent-mma-cu PATH]
                                    [--parent-narrow-cu PATH] [--sass]
                                    [--diagnose | --diagnose-wide |
                                     --diagnose-mma | --diagnose-narrow |
                                     --blocks]
 
-It builds ``csrc/sandwich.cu``, ``csrc/sandwich_narrow.cu``,
-``csrc/sandwich_tri.cu``, ``csrc/sandwich_wide.cu``, ``csrc/sandwich_mma.cu``
-and ``csrc/sandwich_mma_tri.cu`` and prints what ``ptxas`` reported for each
+It builds ``csrc/sandwich_narrow.cu``, ``csrc/sandwich_tri.cu``,
+``csrc/sandwich_wide.cu``, ``csrc/sandwich_mma.cu`` and
+``csrc/sandwich_mma_tri.cu`` and prints what ``ptxas`` reported for each
 of their kernels (registers, shared memory, spills), and the first-pass
 blocks an SM holds at once of the narrow, triangle and wide kernels.  Then,
 for each case of ``CASES``, it holds the kernel against ``sandwich_plain``
@@ -28,26 +27,19 @@ symmetric; d has zeros and negatives) and times it against
 40k x 10,000 (``sparse_wide``'s shape, dense) and 20k x 10,000 (one of the
 two row panels its sandwich runs as), these two at two repeats a turn.  The f32 cases:
 ``sandwich_tri<float>`` at 1M x 50 and 400k x 160 and at k = 33, 64, 100,
-176 on 1M rows; ``sandwich<float>`` at the same two shapes;
-``sandwich_wide<float>`` at 400k x 200, 1M x 177, 200k x 1000 and 50k x 2048,
-each beside ``sandwich<float>`` (``sandwich_tiled``, the f32 kernel past 176
-before ``sandwich_wide.cu``, its source unchanged) as its parent;
-``sandwich_narrow<float>`` at the same four.  Times are CUDA events over
-``--reps`` calls held back to back (``chip_smoke._time_ms``), in turns
-kernel, parent, einsum, einsum, parent, kernel.
+176 on 1M rows; ``sandwich_wide<float>`` at 400k x 200, 1M x 177,
+200k x 1000 and 50k x 2048; ``sandwich_narrow<float>`` at the same four as
+in f64.  Times are CUDA events over ``--reps`` calls held back to back
+(``chip_smoke._time_ms``), in turns kernel, einsum, einsum, kernel, or
+with a parent kernel kernel, parent, einsum, einsum, parent, kernel.
 
-``--parent-cu PATH`` names a ``sandwich.cu`` of another commit (git is not
+``--parent-cu PATH`` names a ``sandwich_tri.cu``, ``sandwich_wide.cu``,
+``sandwich_mma_tri.cu`` or ``sandwich_mma.cu`` of another commit (git is not
 needed here: write it beforehand with ``git show <commit>:tabmat_torch/
-csrc/sandwich.cu``).  It is built with the same flags into
-``build/time_sandwich/`` and held and timed in the same turns: its
-``tabmat_sandwich_f64`` beside ``sandwich_mma_tri<double>`` at 1M x 50 and
-1M x 100, its ``tabmat_sandwich_f32`` beside ``sandwich<float>`` at 1M x 50
-and 400k x 160, each with the row split of ``sandwich_kernel.launch_plan``.
-``--parent-mma-cu PATH`` does the same for a ``sandwich_mma.cu`` of another
-commit (``git show <commit>:tabmat_torch/csrc/sandwich_mma.cu``): its
-``tabmat_sandwich_mma_f64`` beside ``sandwich_mma<double>`` at each of its
-cases, with the row split of ``launch_plan`` (the 64 x 64 tile pairs'
-uniform split, which that kernel took).
+csrc/sandwich_wide.cu``), with this tree's C interface.  It is built with
+the same flags into ``build/time_sandwich/``, launched with this tree's
+row plan (``sandwich_kernel.first_pass_args``) and held and timed in the
+same turns beside this tree's kernel of that source at each of its cases.
 
 ``--parent-narrow-cu PATH`` does the same for a ``sandwich_narrow.cu`` of
 another commit, beside ``sandwich_narrow<T>`` at each of its cases, with
@@ -127,8 +119,7 @@ import chip_smoke  # noqa: E402
 from tabmat_torch import _build  # noqa: E402
 from tabmat_torch.ops import sandwich_kernel as sk  # noqa: E402
 
-SOURCES = ("sandwich", "sandwich_narrow", "sandwich_tri", "sandwich_wide", "sandwich_mma",
-           "sandwich_mma_tri")
+SOURCES = ("sandwich_narrow", "sandwich_tri", "sandwich_wide", "sandwich_mma", "sandwich_mma_tri")
 WIDE_SHAPES = ((chip_smoke.WIDE_N, chip_smoke.F32_WIDE_K), (1_000_000, 177), (200_000, 1000),
                (50_000, 2048))
 MAIN_SHAPES = ((chip_smoke.N, chip_smoke.K), (chip_smoke.WIDE_N, chip_smoke.WIDE_K))
@@ -151,15 +142,9 @@ CASES = (
     + [("sandwich_mma<double>", n, k) for n, k in MMA_SHAPES]
     + [("sandwich_tri<float>", n, k) for n, k in MAIN_SHAPES]
     + [("sandwich_tri<float>", 1_000_000, k) for k in (33, 64, 100, 176)]
-    + [("sandwich<float>", n, k) for n, k in MAIN_SHAPES]
     + [("sandwich_wide<float>", n, k) for n, k in WIDE_SHAPES]
     + [("sandwich_narrow<float>", n, k) for n, k in NARROW_SHAPES + NARROW_WIDE_SHAPES]
 )
-# the cases the parent's sandwich.cu is timed beside (the wide kernel's
-# cases always beside this tree's sandwich<float>)
-PARENT_CASES = {("sandwich_mma_tri<double>", 1_000_000, 50),
-                ("sandwich_mma_tri<double>", 1_000_000, 100)}
-PARENT_CASES |= {("sandwich<float>", n, k) for n, k in MAIN_SHAPES}
 NARROW_DIAGNOSE_SHAPES = NARROW_SHAPES + NARROW_WIDE_SHAPES
 # the cases the parent's sandwich_narrow.cu is timed beside
 PARENT_NARROW_CASES = {(f"sandwich_narrow<{t}>", n, k) for t in ("double", "float")
@@ -260,49 +245,53 @@ def _library_of(source: str, name: str, label: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so))
     # the row argument is a count or (this tree's sandwich_mma.cu) a
     # table's address: 64 bits either way
-    for symbol in ("tabmat_sandwich_f64", "tabmat_sandwich_f32", "tabmat_sandwich_mma_tri_f64",
+    for symbol in ("tabmat_sandwich_tri_f32", "tabmat_sandwich_mma_tri_f64",
                    "tabmat_sandwich_mma_f64"):
         if hasattr(lib, symbol):
             getattr(lib, symbol).argtypes = sk._SANDWICH_ARGTYPES
     if hasattr(lib, "tabmat_sandwich_wide_f32"):
         lib.tabmat_sandwich_wide_f32.argtypes = sk._WIDE_ARGTYPES
-    for symbol in ("tabmat_sandwich_blocks_per_sm", "tabmat_sandwich_mma_tri_blocks_per_sm",
+    for symbol in ("tabmat_sandwich_tri_blocks_per_sm", "tabmat_sandwich_mma_tri_blocks_per_sm",
                    "tabmat_sandwich_wide_blocks_per_sm", "tabmat_sandwich_mma_blocks_per_sm"):
         if hasattr(lib, symbol):
             getattr(lib, symbol).argtypes = [ctypes.c_int, ctypes.c_void_p]
     return lib
 
 
-def parent_kernel(cu: Path, source: str = "sandwich"):
-    """``sandwich(X, d)`` through another commit's ``csrc/<source>.cu``,
-    built here with this tree's flags and headers, with the row split of
-    ``sandwich_kernel.launch_plan``: for ``sandwich`` its
-    ``tabmat_sandwich_f64`` or ``tabmat_sandwich_f32`` (by X's dtype), for
-    ``sandwich_mma`` its ``tabmat_sandwich_mma_f64``."""
+def parent_kernel(cu: Path):
+    """``(kernel, sandwich(X, d))`` through another commit's
+    ``csrc/<source>.cu`` (``source`` its file name: the source of one
+    kernel of this tree's, not ``sandwich_narrow``), built here with this
+    tree's flags and headers and launched as this tree launches its own
+    kernel of that source (``sandwich_kernel.first_pass_args``)."""
+    source = cu.stem
+    kernels = [name for name, (src, _) in sk._KERNELS.items()
+               if src == source and name in sk.KERNEL_WRAPPERS]
+    if len(kernels) != 1:
+        raise SystemExit(f"--parent-cu takes sandwich_tri.cu, sandwich_wide.cu, "
+                         f"sandwich_mma_tri.cu or sandwich_mma.cu, not {cu.name}")
+    kernel = kernels[0]
     lib = _library_of(cu.read_text(), f"parent_{source}", f"parent {cu}")
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    blocks = {}
-    for is_f64 in (0, 1) if source == "sandwich" else (1,):
-        count = ctypes.c_int(0)
-        if getattr(lib, f"tabmat_{source}_blocks_per_sm")(is_f64, ctypes.byref(count)) != 0:
-            raise RuntimeError("the parent's occupancy query failed")
-        blocks[is_f64] = max(1, count.value)
+    count = ctypes.c_int(0)
+    if getattr(lib, f"tabmat_{source}_blocks_per_sm")(int(kernel.endswith("<double>")),
+                                                       ctypes.byref(count)) != 0:
+        raise RuntimeError("the parent's occupancy query failed")
+    fn = getattr(lib, sk._KERNELS[kernel][1])
 
     def run(X, d):
         n, k = X.shape
-        is_f64 = int(X.dtype == torch.float64)
-        splits, rows_per_split = sk.launch_plan(n, k, n_sm, blocks[is_f64])
+        splits, size, rows = sk.first_pass_args(source, n, k, n_sm, max(1, count.value),
+                                                X.device)
         out = torch.empty((k, k), dtype=X.dtype, device=X.device)
-        partial = torch.empty((splits, k, k), dtype=X.dtype, device=X.device)
-        fn = (lib.tabmat_sandwich_mma_f64 if source == "sandwich_mma" else
-              lib.tabmat_sandwich_f64 if is_f64 else lib.tabmat_sandwich_f32)
+        partial = torch.empty((splits, size), dtype=X.dtype, device=X.device)
         err = fn(X.data_ptr(), d.data_ptr(), out.data_ptr(), partial.data_ptr(), n, k, splits,
-                 rows_per_split, 0, torch.cuda.current_stream().cuda_stream)
+                 rows, 0, torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"the parent's sandwich failed: CUDA error {err}")
         return out
 
-    return run
+    return kernel, run
 
 
 # --diagnose: sandwich_mma_tri.cu with one half of its work taken out, by
@@ -785,7 +774,6 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--reps", type=int, default=20)
     parser.add_argument("--parent-cu", type=Path, default=None)
-    parser.add_argument("--parent-mma-cu", type=Path, default=None)
     parser.add_argument("--parent-narrow-cu", type=Path, default=None)
     parser.add_argument("--sass", action="store_true")
     which = parser.add_mutually_exclusive_group()
@@ -841,9 +829,7 @@ def main() -> int:
                  "sandwich_wide<float>" if args.diagnose_wide else
                  "sandwich_mma<double>" if args.diagnose_mma else "sandwich_mma_tri<double>")
         return 0
-    parent = None if args.parent_cu is None else parent_kernel(args.parent_cu)
-    parent_mma = (None if args.parent_mma_cu is None else
-                  parent_kernel(args.parent_mma_cu, "sandwich_mma"))
+    parent_name, parent = (None, None) if args.parent_cu is None else parent_kernel(args.parent_cu)
     parent_narrow = (None if args.parent_narrow_cu is None else
                      narrow_kernel(args.parent_narrow_cu.read_text(), "parent_narrow",
                                    f"parent {args.parent_narrow_cu}")[0])
@@ -854,10 +840,8 @@ def main() -> int:
         X = torch.randn(n, k, device=device, dtype=dtype, generator=gen)
         d = torch.randn(n, device=device, dtype=dtype, generator=gen)
         d[::5] = 0.0
-        yardstick = sk.sandwich_tiled if name == "sandwich_wide<float>" else (
-            parent_mma if name == "sandwich_mma<double>" else
-            parent_narrow if (name, n, k) in PARENT_NARROW_CASES else
-            parent if (name, n, k) in PARENT_CASES else None)
+        yardstick = (parent if name == parent_name else
+                     parent_narrow if (name, n, k) in PARENT_NARROW_CASES else None)
         reps = 2 if (name, n, k) in SLOW_CASES else args.reps
         ok &= held(name, sk.KERNEL_WRAPPERS[name], X, d, reps, card, yardstick)
         del X, d
