@@ -18,8 +18,11 @@ them, ``plans_from_device_keys`` (built from keys already on the plan's
 device, with no upload), ``tables_built`` (kernel tables built at a plan's
 first call on the card, ``ops/segsum_kernel.py``, ``ops/spmv_kernel.py`` and
 ``ops/sparse_gram_kernel.py``),
-``steps`` (Newton steps, ``glm.py``), ``sparse_gram`` (the ``SparseMatrix``
-sandwiches the sparse Gram kernel serves, ``models/sparse.py``), and
+``steps`` (Newton steps, ``glm.py``), ``cg_graph_captures`` and
+``cg_graph_replays`` (the CUDA graphs of the explicit-Hessian CG solve
+captured, and replayed, ``glm._cg_solve_dense``), ``sparse_gram`` (the
+``SparseMatrix`` sandwiches the sparse Gram kernel serves,
+``models/sparse.py``), and
 ``sparse_panels`` and ``sparse_panel_bytes`` (the row panels a
 ``SparseMatrix`` sandwich densifies, and their bytes).  Kernel launches are counted by the
 wrappers' ``launches`` dicts.

@@ -4,7 +4,8 @@ Port of ``tabmat_tpu/glm.py``: iteratively reweighted least squares with a
 conjugate-gradient inner solve, and FISTA for the elastic net.  The
 reference jit-compiles each step; the port runs eagerly, so its fixed-count
 loops (``lax.fori_loop``) are Python loops over device tensors with no
-host synchronisation inside a step.
+host synchronisation inside a step.  On a CUDA card the CG loop on an
+explicit Hessian is captured once as a CUDA graph and replayed.
 
 Functional core:
   - ``irls_step(X, y, weights, beta, family=...)`` — one Newton step
@@ -23,6 +24,8 @@ all-reduced over the ranks, so the CG solve, the step and the convergence
 test are the same on every rank.
 """
 
+import threading
+from collections import OrderedDict
 from typing import Callable
 
 import numpy as np
@@ -137,6 +140,72 @@ def _cg_solve(matvec: Callable, b: torch.Tensor, n_iter: int) -> torch.Tensor:
     return x
 
 
+# the CUDA graphs of _cg_solve_dense by (device, dtype, k, n_iter), the most
+# recently used last; past _CG_GRAPHS_KEPT the oldest is dropped.  The lock
+# makes a call's copies in, replay and copy out one sequence on its stream
+_CG_GRAPHS_KEPT = 4
+_cg_graphs = OrderedDict()
+_cg_lock = threading.Lock()
+
+
+def _cg_solve_dense(H: torch.Tensor, b: torch.Tensor, n_iter: int) -> torch.Tensor:
+    """``_cg_solve(lambda v: H @ v, b, n_iter)`` on an explicit (k, k) ``H``.
+
+    On a CUDA tensor the loop's launches (a GEMV, two dots and about fifteen
+    small elementwise kernels an iteration) are one CUDA graph, captured at
+    the first call of its (device, dtype, k, n_iter) and replayed after:
+    ``H`` and ``b`` are copied into the graph's own tensors, the graph runs
+    the same kernels in the same order on them, and a copy of its result is
+    returned, so the result is bit for bit the eager loop's on a contiguous
+    ``H`` (every Hessian of the port is one).  On the CPU, or while the
+    current stream is being captured into a caller's graph, the loop runs
+    eagerly.
+    """
+    if H.device.type != "cuda":
+        return _cg_solve(lambda v: H @ v, b, n_iter)
+    with torch.cuda.device(H.device):
+        if torch.cuda.is_current_stream_capturing():
+            return _cg_solve(lambda v: H @ v, b, n_iter)
+        key = (H.device, H.dtype, b.shape[0], n_iter)
+        with _cg_lock:
+            entry = _cg_graphs.get(key)
+            if entry is None:
+                entry = _cg_graphs[key] = _cg_capture(H, b, n_iter)
+                while len(_cg_graphs) > _CG_GRAPHS_KEPT:
+                    _cg_graphs.popitem(last=False)
+            else:
+                _cg_graphs.move_to_end(key)
+            graph, H_static, b_static, x_static, done = entry
+            stream = torch.cuda.current_stream()
+            # the last call's copy out, whichever stream it was queued on
+            stream.wait_event(done)
+            H_static.copy_(H)
+            b_static.copy_(b)
+            graph.replay()
+            x = x_static.clone()
+            done.record(stream)
+            _trace.count("cg_graph_replays")
+        return x
+
+
+def _cg_capture(H: torch.Tensor, b: torch.Tensor, n_iter: int):
+    """(graph, H, b, x, event) of ``_cg_solve_dense``: the loop on contiguous
+    copies of ``H`` and ``b``, run once on the capture stream (which sets up
+    its cuBLAS workspace outside the capture), then captured; the event marks
+    the end of a call's copy out."""
+    H_static = H.clone(memory_format=torch.contiguous_format)
+    b_static = b.clone(memory_format=torch.contiguous_format)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        _cg_solve(lambda v: H_static @ v, b_static, n_iter)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+        x_static = _cg_solve(lambda v: H_static @ v, b_static, n_iter)
+    _trace.count("cg_graph_captures")
+    return graph, H_static, b_static, x_static, torch.cuda.Event()
+
+
 def _f32_hessian_scale(X32, w: torch.Tensor) -> torch.Tensor:
     """Power of two ``s ≤ 1`` with ``max |x_ij| · |w_i| · s ≤ 1``, on the device.
 
@@ -179,7 +248,8 @@ def irls_step(
 
     A design with an explicit sandwich builds the Hessian once
     (``Xᵀ diag(w) X``, the CUDA kernel on a GPU) and runs CG on the (k, k)
-    matrix; otherwise the Hessian-vector product is two matvecs.
+    matrix, on a GPU as one CUDA graph (``_cg_solve_dense``); otherwise the
+    Hessian-vector product is two matvecs.
     """
     with _trace.span("step"):
         _trace.count("steps")
@@ -208,14 +278,14 @@ def irls_step(
                     if l2:
                         H = H + torch.diag((l2 * s * ps).to(torch.float32))
                 with _trace.span("step.cg"):
-                    delta = _cg_solve(lambda v: H @ v, (grad * s).to(torch.float32), n_cg)
+                    delta = _cg_solve_dense(H, (grad * s).to(torch.float32), n_cg)
                     return beta + delta.to(beta.dtype)
             with _trace.span("step.sandwich"):
                 H = X.sandwich(w)
                 if l2:
                     H = H + l2 * torch.diag(ps)
             with _trace.span("step.cg"):
-                delta = _cg_solve(lambda v: H @ v, grad, n_cg)
+                delta = _cg_solve_dense(H, grad, n_cg)
                 return beta + delta
 
         if f32_inner:

@@ -220,6 +220,58 @@ def test_cg_no_nan_past_convergence():
     torch.testing.assert_close(x, b)
 
 
+@pytest.mark.parametrize(
+    "case",
+    [("solve", dtype, n) for dtype in (torch.float32, torch.float64) for n in (1, 8, 50)]
+    + [("irls_step", inner, 8) for inner in ("float32", "float64")],
+    ids=lambda case: "-".join(str(part).replace("torch.", "") for part in case),
+)
+def test_cg_solve_dense_is_the_eager_loop_on_cpu(case):
+    """On CPU tensors the explicit-Hessian solve is ``_cg_solve`` on ``H @ v``
+    bit for bit, and so is each explicit branch of ``irls_step``; no CUDA
+    graph is captured or replayed."""
+    from tabmat_torch import _trace
+
+    kind, dtype, n = case
+    _trace.disable()
+    _trace.take()
+    _trace.enable()
+    try:
+        if kind == "solve":
+            rng = np.random.default_rng(n)
+            A = rng.standard_normal((43, 43))
+            H = torch.tensor(A @ A.T + 43 * np.eye(43), dtype=dtype)
+            b = torch.tensor(rng.standard_normal(43), dtype=dtype)
+            got = glm._cg_solve_dense(H, b, n)
+            want = glm._cg_solve(lambda v: H @ v, b, n)
+        else:
+            X, y, w, beta0 = _problem("poisson", seed=50)
+            _, port = _designs(X)
+            yt, wt, bt = torch.tensor(y), torch.tensor(8 * w), torch.tensor(beta0)
+            ps = torch.tensor(np.r_[0.0, np.ones(X.shape[1] - 1)])
+            got = glm.irls_step(port, yt, wt, bt, family="poisson", n_cg=n, l2=0.5,
+                                inner_precision=dtype, penalty_scale=ps)
+            _, w_irls, resid = glm._family_terms("poisson", port @ bt, yt)
+            w_all = wt * w_irls
+            grad = port.T @ (wt * resid) - 0.5 * ps * bt
+            if dtype == "float32":
+                X32 = port.astype_float(torch.float32)
+                s = glm._f32_hessian_scale(X32, w_all)
+                H = (X32.sandwich((w_all * s).to(torch.float32))
+                     + torch.diag((0.5 * s * ps).to(torch.float32)))
+                delta = glm._cg_solve(lambda v: H @ v, (grad * s).to(torch.float32), n)
+            else:
+                H = port.sandwich(w_all) + 0.5 * torch.diag(ps)
+                delta = glm._cg_solve(lambda v: H @ v, grad, n)
+            want = bt + delta.to(torch.float64)
+        counters = _trace.take()["counters"]
+    finally:
+        _trace.disable()
+        _trace.take()
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    assert "cg_graph_captures" not in counters and "cg_graph_replays" not in counters
+
+
 @pytest.mark.parametrize("kind", ["numpy", "tensor", "dense", "standardized"])
 @pytest.mark.parametrize("inner", ["float64", "float32"])
 def test_fit_glm(kind, inner):

@@ -765,3 +765,231 @@ def test_plan_sorted_on_the_card_is_the_host_plan(cuda, W):
     host = build_plan(combined, a.shape[1] * b.shape[1], "cpu")
     assert torch.equal(cross.perm.cpu(), host.perm)
     assert torch.equal(cross.bounds.cpu(), host.bounds)
+
+
+# -- the explicit-Hessian CG solve, replayed as a CUDA graph ------------------
+
+
+def _spd(k, dtype, device, seed):
+    """A symmetric positive definite (k, k) ``H`` and a ``b``, in ``dtype``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    A = torch.randn(k, k, device=device, dtype=torch.float64, generator=gen)
+    H = A @ A.T / k + torch.eye(k, device=device, dtype=torch.float64)
+    b = torch.randn(k, device=device, dtype=torch.float64, generator=gen)
+    return ((H + H.T) / 2).to(dtype).contiguous(), b.to(dtype)
+
+
+def _eager_cg(H, b, n_iter):
+    from tabmat_torch import glm
+
+    return glm._cg_solve(lambda v: H @ v, b, n_iter)
+
+
+@pytest.fixture
+def graph_counters():
+    """``_trace`` on and the graph cache empty for the test; yields a
+    function returning the counters recorded so far."""
+    from tabmat_torch import _trace, glm
+
+    glm._cg_graphs.clear()
+    _trace.disable()
+    _trace.take()
+    _trace.enable()
+    seen = {}
+
+    def counters():
+        seen.update({k: seen.get(k, 0) + v for k, v in _trace.take()["counters"].items()})
+        return dict(seen)
+
+    yield counters
+    _trace.disable()
+    _trace.take()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("n_iter", [1, 8, 100])
+@pytest.mark.parametrize("k", [1, 7, 43, 300])
+def test_cg_graph_is_the_eager_loop_bit_for_bit(cuda, k, n_iter, dtype):
+    """The captured call and a replay each give the eager loop's result, bit
+    for bit."""
+    from tabmat_torch import glm
+
+    H, b = _spd(k, dtype, cuda, seed=k * 1000 + n_iter)
+    want = _eager_cg(H, b, n_iter)
+    first, again = glm._cg_solve_dense(H, b, n_iter), glm._cg_solve_dense(H, b, n_iter)
+    torch.cuda.synchronize()
+    bits = _BITS[dtype]
+    assert torch.isfinite(want).all()
+    assert torch.equal(first.view(bits), want.view(bits))
+    assert torch.equal(again.view(bits), want.view(bits))
+
+
+def test_cg_graph_new_inputs_and_results_held_apart(cuda, graph_counters):
+    """A replay with a new H and b gives their answer, not the last one; two
+    results held at once are two tensors, neither the graph's own buffer."""
+    from tabmat_torch import glm
+
+    (H1, b1), (H2, b2) = _spd(43, torch.float32, cuda, 1), _spd(43, torch.float32, cuda, 2)
+    x1 = glm._cg_solve_dense(H1, b1, 100)
+    x2 = glm._cg_solve_dense(H2, b2, 100)
+    want1, want2 = _eager_cg(H1, b1, 100), _eager_cg(H2, b2, 100)
+    torch.cuda.synchronize()
+    assert torch.equal(x1, want1) and torch.equal(x2, want2)
+    assert not torch.equal(x1, x2)
+    x_static = glm._cg_graphs[(cuda, torch.float32, 43, 100)][3]
+    ptrs = {x1.data_ptr(), x2.data_ptr(), x_static.data_ptr()}
+    assert len(ptrs) == 3
+    assert graph_counters() == {"cg_graph_captures": 1, "cg_graph_replays": 2}
+
+
+def test_cg_graph_captured_once_per_key(cuda, graph_counters):
+    """One capture for each (device, dtype, k, n_iter), every call a replay;
+    the cache keeps the most recently used entries and no more."""
+    from tabmat_torch import glm
+
+    calls = [(43, torch.float32, 100)] * 3 + [(7, torch.float32, 100), (43, torch.float64, 100),
+                                              (43, torch.float32, 8), (43, torch.float32, 100)]
+    for k, dtype, n_iter in calls:
+        H, b = _spd(k, dtype, cuda, seed=k)
+        glm._cg_solve_dense(H, b, n_iter)
+    assert graph_counters() == {"cg_graph_captures": 4, "cg_graph_replays": len(calls)}
+    H, b = _spd(9, torch.float64, cuda, seed=9)
+    glm._cg_solve_dense(H, b, 5)
+    assert len(glm._cg_graphs) == glm._CG_GRAPHS_KEPT
+    # the least recently used key, (7, float32, 100), went
+    assert (cuda, torch.float32, 7, 100) not in glm._cg_graphs
+    assert (cuda, torch.float32, 43, 100) in glm._cg_graphs
+    assert graph_counters() == {"cg_graph_captures": 5, "cg_graph_replays": len(calls) + 1}
+
+
+def test_cg_graph_shared_by_threads_and_streams(cuda, graph_counters):
+    """Sixteen threads, every other one on a stream of its own, each solving
+    its own system twenty times through one graph, the interpreter switching
+    threads every microsecond: every result is its own system's."""
+    import sys
+    import threading
+
+    from tabmat_torch import glm
+
+    systems = [_spd(43, torch.float32, cuda, seed=100 + i) for i in range(16)]
+    wants = [_eager_cg(H, b, 100) for H, b in systems]
+    glm._cg_solve_dense(*systems[0], 100)  # the capture, before the threads
+    torch.cuda.synchronize()
+    wrong, raised = [], []
+
+    def work(i):
+        try:
+            stream = torch.cuda.Stream() if i % 2 else torch.cuda.current_stream()
+            with torch.cuda.stream(stream):
+                got = [glm._cg_solve_dense(*systems[i], 100) for _ in range(20)]
+            stream.synchronize()
+            wrong.extend(i for x in got if not torch.equal(x, wants[i]))
+        except Exception as e:  # noqa: BLE001 - reported by the assertion below
+            raised.append(repr(e))
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(i,)) for i in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert raised == [] and wrong == []
+    assert graph_counters() == {"cg_graph_captures": 1, "cg_graph_replays": 1 + 16 * 20}
+
+
+def test_cg_graph_inside_a_callers_capture_runs_eagerly(cuda, graph_counters):
+    """While the stream is captured into a caller's graph the solve is the
+    eager loop, recorded into that graph."""
+    from tabmat_torch import glm
+
+    H, b = _spd(43, torch.float64, cuda, seed=3)
+    want = _eager_cg(H, b, 8)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        _eager_cg(H, b, 8)
+    outer = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(outer, stream=stream):
+        x = glm._cg_solve_dense(H, b, 8)
+    outer.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(x, want)
+    assert graph_counters() == {}
+
+
+@pytest.mark.parametrize("inner", ["float32", "float64"])
+def test_fit_glm_with_the_cg_graph_is_the_eager_fit(cuda, monkeypatch, graph_counters, inner):
+    """``fit_glm`` on the smoke's freMTPL2-shaped design (its formula, 678,013
+    rows) at the benchmark's settings: the same beta bit for bit and the same
+    number of steps with the graph as with the eager solve; one capture, a
+    replay a step."""
+    from tabmat_torch import glm
+    from tabmat_torch.parallel.design import DeviceDesign
+
+    cs = _chip_smoke()
+    frame = cs.freq_frame(cs.FREQ_N, np.random.default_rng(6))
+    X = tt.from_formula(cs.FREQ_FORMULA, frame, include_intercept=True, ensure_full_rank=True,
+                        device=cuda)
+    design = DeviceDesign.from_matrix(X)
+    y = frame["ClaimNb"].to_numpy(np.float64)
+    exposure = frame["Exposure"].to_numpy(np.float64)
+    ps = np.r_[0.0, np.ones(design.shape[1] - 1)]
+
+    def fit():
+        return tt.fit_glm(design, y, sample_weight=exposure, family="poisson", max_iter=50,
+                          tol=1e-8, n_cg=100, l2=6.78, inner_precision=inner, penalty_scale=ps)
+
+    beta, n_iter = fit()
+    counters = graph_counters()
+    assert counters["cg_graph_captures"] == 1
+    assert counters["cg_graph_replays"] == counters["steps"] == n_iter
+    monkeypatch.setattr(glm, "_cg_solve_dense", _eager_cg)
+    eager, eager_iter = fit()
+    assert 1 < n_iter < 50 and n_iter == eager_iter
+    assert torch.equal(beta, eager)
+
+
+def test_sharded_irls_with_the_cg_graph_on_card(cuda):
+    """The user path's sharded step and fit (``tests/torch_multichip_cases``)
+    on eight gloo ranks sharing the card: on every rank the graph's results
+    are the eager solve's bit for bit and every rank holds the same bits; the
+    steps are within the multi-device tests' limits of the one-device step
+    on the card; each rank captured once a key and replayed a step."""
+    import torch_multichip_cases as cases
+
+    from tabmat_torch import glm
+    from tabmat_torch.parallel import launch
+    from tabmat_torch.parallel.design import DeviceDesign
+
+    ranks = launch.run(cases.graph_step_cases, cases.WORLD, "gloo", None, timeout=600)
+    first = ranks[0]
+    assert first["supports_sandwich"]
+    for got in ranks:
+        for inner in cases.INNER:
+            assert np.array_equal(got[f"step_{inner}_graph"], got[f"step_{inner}_eager"])
+            assert np.array_equal(got[f"step_{inner}_graph"], first[f"step_{inner}_graph"])
+        assert np.array_equal(got["fit_glm_graph"][0], got["fit_glm_eager"][0])
+        assert got["fit_glm_graph"][1] == got["fit_glm_eager"][1]
+        graph = got["counters_graph"]
+        # two steps and the fit's steps; keys (float64, 5), (float32, 5), (float64, 16)
+        assert graph["cg_graph_captures"] == 3
+        assert graph["cg_graph_replays"] == graph["steps"] == 2 + got["fit_glm_graph"][1]
+        assert "cg_graph_replays" not in got["counters_eager"]
+    p = cases.user_problem()
+    whole = DeviceDesign.from_matrix(cases.user_split(p, tt, device=cuda))
+    y = torch.as_tensor(p["y"]["poisson"], device=cuda)
+    ones = torch.ones_like(y)
+    b0 = torch.zeros(whole.shape[1], dtype=torch.float64, device=cuda)
+    for inner in cases.INNER:
+        single = glm.irls_step(whole, y, ones, b0, family="poisson", n_cg=cases.N_CG,
+                               inner_precision=inner).cpu().numpy()
+        got = first[f"step_{inner}_graph"]
+        if inner == "float64":
+            np.testing.assert_allclose(got, single, rtol=1e-8, atol=1e-10)
+        else:
+            assert np.abs(got - single).max() <= 1e-4 * np.abs(single).max()

@@ -217,6 +217,41 @@ def run_cases(device) -> dict:
     return out
 
 
+def graph_step_cases(device) -> dict:
+    """The user path's sharded step (both inner precisions) and fit, each
+    with the explicit-Hessian CG solve as the card's CUDA graph and as the
+    eager loop; and each way's ``_trace`` counters."""
+    from tabmat_torch import _trace, glm
+
+    mesh = make_mesh(WORLD, mp=MP, device=device)
+    p = user_problem()
+    design = DeviceDesign.from_matrix(user_split(p, tt, device="cpu"))
+    sharded = design.shard(mesh, rows="dp", dense_cols="mp")
+    ones = np.ones(design.shape[0])
+    graph = glm._cg_solve_dense
+
+    def eager(H, b, n_iter):
+        return glm._cg_solve(lambda v: H @ v, b, n_iter)
+
+    out = {"supports_sandwich": sharded.supports_sandwich}
+    for label, solve in (("graph", graph), ("eager", eager)):
+        glm._cg_solve_dense = solve
+        _trace.enable()
+        try:
+            for inner in INNER:
+                out[f"step_{inner}_{label}"] = _step(sharded, mesh, p["y"]["poisson"], ones,
+                                                     "poisson", inner)
+            beta, n_iter = fit_glm(sharded, shard_rows(p["y"]["poisson"], mesh),
+                                   family="poisson", max_iter=20, tol=1e-8, n_cg=16,
+                                   inner_precision="float64")
+            out[f"fit_glm_{label}"] = (_np(beta), n_iter)
+        finally:
+            glm._cg_solve_dense = graph
+            _trace.disable()
+        out[f"counters_{label}"] = _trace.take()["counters"]
+    return out
+
+
 def fail_on_rank(device, rank: int) -> int:
     """Raise on ``rank``; the others return their rank."""
     if torch.distributed.get_rank() == rank:
