@@ -22,10 +22,14 @@ first call on the card, ``ops/segsum_kernel.py``, ``ops/spmv_kernel.py`` and
 ``cg_graph_replays`` (the CUDA graphs of the explicit-Hessian CG solve
 captured, and replayed, ``glm._cg_solve_dense``), ``sparse_gram`` (the
 ``SparseMatrix`` sandwiches the sparse Gram kernel serves,
-``models/sparse.py``), and
+``models/sparse.py``),
 ``sparse_panels`` and ``sparse_panel_bytes`` (the row panels a
-``SparseMatrix`` sandwich densifies, and their bytes).  Kernel launches are counted by the
-wrappers' ``launches`` dicts.
+``SparseMatrix`` sandwich densifies, and their bytes), and ``std_sandwich``
+and ``std_rank1_bytes`` (``StandardizedMatrix`` sandwiches, and the bytes of
+the (k, k) temporaries their rank-1 expansion allocates,
+``models/standardized.py``, whose spans are ``std.matvec``, ``std.tmv`` and
+``std.sandwich`` > ``std.sandwich.inner``, ``std.sandwich.rank1``).  Kernel
+launches are counted by the wrappers' ``launches`` dicts.
 
 Spans are ``with`` blocks inside function bodies, never wrappers: a frame
 more would move what ``from_formula(context=<int>)`` reads.

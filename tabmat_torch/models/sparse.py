@@ -496,11 +496,21 @@ class SparseMatrix(MatrixBase):
             return self._matvec_helper(vec, rows, cols, out, True)
 
     def _get_col_stds(self, weights, col_means) -> np.ndarray:
-        """Weighted column stds via E[X²] − E[X]² over the CSC layout."""
+        """Weighted column stds in ``DenseMatrix``'s shifted form,
+        ``Σ w (x − μ)²``, over the CSC layout: the stored entries' squared
+        deviations, plus ``μ²`` times the weight of the rows a column leaves
+        empty (none where it stores every row).  ``E[X²] − E[X]²`` would leave
+        a constant column the rounding of weights that do not sum to exactly
+        one, a std that can pass ``one_over_var_inf_to_val``'s 1e-7."""
         data, plan = self._csc_parts()
-        w = to_tensor(weights, device=self._device, dtype=data.dtype)
-        ex2 = to_numpy(sparse_ops.csc_square_dot_weights(data, plan, w.contiguous()))
-        sqrt_arg = ex2 - np.asarray(col_means) ** 2
+        w = to_tensor(weights, device=self._device, dtype=data.dtype).contiguous()
+        mu = to_tensor(np.asarray(col_means), device=self._device, dtype=data.dtype)
+        counts = torch.diff(plan.bounds).long()
+        deviation = data - torch.repeat_interleave(mu, counts, output_size=data.shape[0])
+        stored = sparse_ops.csc_square_dot_weights(deviation, plan, w)
+        stored_weight = sparse_ops.csc_rmatvec(torch.ones_like(data), plan, w)
+        empty_weight = torch.where(counts == self.shape[0], 0.0, w.sum() - stored_weight)
+        sqrt_arg = to_numpy(stored + mu * mu * empty_weight).copy()
         sqrt_arg[sqrt_arg < 0] = 0
         return np.sqrt(sqrt_arg)
 

@@ -10,7 +10,14 @@ where ``t = mat.transpose_matvec(d)`` and ``M = outer(mult, mult)``.
 
 The rank-1 algebra runs in numpy for numpy callers and in torch, on the
 caller's device, for tensor callers; the inner sandwich runs the kernel
-either way.
+either way.  ``shift`` and ``mult`` go to a tensor caller's device once for
+each (device, dtype) and stay there on the instance.
+
+Spans: ``std.matvec``, ``std.tmv`` and ``std.sandwich``, which holds
+``std.sandwich.inner`` (the inner matrix's sandwich and transpose-matvec)
+and ``std.sandwich.rank1`` (``M ∘ T``, the three rank-1 terms and their
+sum).  Counters: ``std_sandwich``, one a sandwich, and ``std_rank1_bytes``,
+the bytes of the (k, k) temporaries the expansion allocates.
 """
 
 from typing import Optional, Union
@@ -18,6 +25,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from .. import _trace
 from ..ops.diag import DiagonalResult
 from ..utils import (
     as_numpy_dtype,
@@ -80,6 +88,8 @@ class StandardizedMatrix:
 
         self.shift = shift_arr
         self.mult = mult_arr
+        # (device, dtype) -> (shift, mult) as tensors there
+        self._device_params = {}
         self.mat = mat
         self.shape = mat.shape
         self.ndim = mat.ndim
@@ -90,16 +100,21 @@ class StandardizedMatrix:
 
         numpy ``like`` gets the numpy parameters.  A tensor ``like`` gets
         tensors on its device, all in the promoted dtype (numpy and JAX
-        promote mixed dtypes; torch's matmul does not).
+        promote mixed dtypes; torch's matmul does not), copied there at the
+        first call for the (device, dtype) and kept.
         """
         if not torch.is_tensor(like):
             return like, self.shift, self.mult
         dtype = torch.promote_types(like.dtype, as_torch_dtype(self.shift.dtype))
-        shift = torch.as_tensor(self.shift, device=like.device, dtype=dtype)
-        mult = None
-        if self.mult is not None:
-            mult = torch.as_tensor(self.mult, device=like.device, dtype=dtype)
-        return like.to(dtype), shift, mult
+        key = (like.device, dtype)
+        params = self._device_params.get(key)
+        if params is None:
+            shift = torch.as_tensor(self.shift, device=like.device, dtype=dtype)
+            mult = None
+            if self.mult is not None:
+                mult = torch.as_tensor(self.mult, device=like.device, dtype=dtype)
+            params = self._device_params[key] = (shift, mult)
+        return (like.to(dtype),) + params
 
     @property
     def device(self):
@@ -110,33 +125,35 @@ class StandardizedMatrix:
 
     def matvec(self, other_mat, cols: Optional[np.ndarray] = None, out=None):
         """``self[:, cols] @ other[cols]`` (dense output)."""
-        other = other_mat if torch.is_tensor(other_mat) else np.asarray(other_mat)
-        check_matvec_dimensions(self, other, transpose=False)
+        with _trace.span("std.matvec"):
+            other = other_mat if torch.is_tensor(other_mat) else np.asarray(other_mat)
+            check_matvec_dimensions(self, other, transpose=False)
 
-        k = self.shape[1]
-        full_cols = cols is None or len(cols) == k
-        cols = None if full_cols else set_up_rows_or_cols(cols, k, np.int64)
-        other, shift, mult = self._params(other)
+            k = self.shape[1]
+            full_cols = cols is None or len(cols) == k
+            cols = None if full_cols else set_up_rows_or_cols(cols, k, np.int64)
+            other, shift, mult = self._params(other)
 
-        mult_other = other
-        if mult is not None:
-            for _ in range(other.ndim - 1):
-                mult = mult[:, None]
-            mult_other = mult * other
+            mult_other = other
+            if mult is not None:
+                for _ in range(other.ndim - 1):
+                    mult = mult[:, None]
+                mult_other = mult * other
 
-        mat_part = self.mat.matvec(mult_other, cols, out=out)
-        if full_cols:
-            shift_part = shift @ other
-        else:
-            idx = cols if not torch.is_tensor(other) else torch.as_tensor(cols, device=other.device)
-            shift_part = shift[idx] @ other[idx]
-        if torch.is_tensor(mat_part):
-            # in place: a tensor ``out`` was already updated by the inner op
-            return mat_part.add_(shift_part.to(mat_part.dtype))
-        if isinstance(mat_part, np.ndarray) and mat_part.flags.writeable:
-            mat_part += np.asarray(shift_part)
-            return mat_part
-        return mat_part + shift_part
+            mat_part = self.mat.matvec(mult_other, cols, out=out)
+            if full_cols:
+                shift_part = shift @ other
+            else:
+                idx = cols if not torch.is_tensor(other) else torch.as_tensor(
+                    cols, device=other.device)
+                shift_part = shift[idx] @ other[idx]
+            if torch.is_tensor(mat_part):
+                # in place: a tensor ``out`` was already updated by the inner op
+                return mat_part.add_(shift_part.to(mat_part.dtype))
+            if isinstance(mat_part, np.ndarray) and mat_part.flags.writeable:
+                mat_part += np.asarray(shift_part)
+                return mat_part
+            return mat_part + shift_part
 
     def transpose_matvec(
         self,
@@ -149,48 +166,51 @@ class StandardizedMatrix:
 
         The shift contributes ``outer(shift[cols], other[rows].sum(0))``.
         """
-        check_transpose_matvec_out_shape(self, out)
-        other = other if torch.is_tensor(other) else np.asarray(other)
-        check_matvec_dimensions(self, other, transpose=True)
-        is_t = torch.is_tensor(other)
+        with _trace.span("std.tmv"):
+            check_transpose_matvec_out_shape(self, out)
+            other = other if torch.is_tensor(other) else np.asarray(other)
+            check_matvec_dimensions(self, other, transpose=True)
+            is_t = torch.is_tensor(other)
 
-        res = self.mat.transpose_matvec(other, rows, cols)
+            res = self.mat.transpose_matvec(other, rows, cols)
 
-        # no row index array without a row restriction: np.arange(n) would be
-        # the call's only host allocation of n elements
-        cols_idx = set_up_rows_or_cols(cols, self.shape[1], np.int64)
-        full_cols = is_identity_index(cols, self.shape[1])
-        if rows is None or len(rows) == self.shape[0]:
-            other_sum = other.sum(0)
-        else:
-            rows_idx = set_up_rows_or_cols(rows, self.shape[0], np.int64)
-            ridx = torch.as_tensor(rows_idx, device=other.device) if is_t else rows_idx
-            other_sum = other[ridx].sum(0)
+            # no row index array without a row restriction: np.arange(n) would
+            # be the call's only host allocation of n elements
+            cols_idx = set_up_rows_or_cols(cols, self.shape[1], np.int64)
+            full_cols = is_identity_index(cols, self.shape[1])
+            if rows is None or len(rows) == self.shape[0]:
+                other_sum = other.sum(0)
+            else:
+                rows_idx = set_up_rows_or_cols(rows, self.shape[0], np.int64)
+                ridx = torch.as_tensor(rows_idx, device=other.device) if is_t else rows_idx
+                other_sum = other[ridx].sum(0)
 
-        other, shift, mult = self._params(other)
-        other_sum = other_sum.to(shift.dtype) if is_t else other_sum
-        cidx = torch.as_tensor(cols_idx, device=other.device) if is_t else cols_idx
-        shift_lim = shift if full_cols else shift[cidx]
-        output_shape = (
-            (self.shape[1] if cols is None else len(cols_idx)),
-        ) + tuple(res.shape[1:])
-        shift_part = _outer(shift_lim, other_sum).reshape(output_shape)
+            other, shift, mult = self._params(other)
+            other_sum = other_sum.to(shift.dtype) if is_t else other_sum
+            cidx = cols_idx
+            if is_t and not full_cols:
+                cidx = torch.as_tensor(cols_idx, device=other.device)
+            shift_lim = shift if full_cols else shift[cidx]
+            output_shape = (
+                (self.shape[1] if cols is None else len(cols_idx)),
+            ) + tuple(res.shape[1:])
+            shift_part = _outer(shift_lim, other_sum).reshape(output_shape)
 
-        if mult is not None:
-            mult_lim = mult if full_cols else mult[cidx]
-            for _ in range(res.ndim - 1):
-                mult_lim = mult_lim[:, None]
-            res = res * mult_lim
-        res = res + shift_part
+            if mult is not None:
+                mult_lim = mult if full_cols else mult[cidx]
+                for _ in range(res.ndim - 1):
+                    mult_lim = mult_lim[:, None]
+                res = res * mult_lim
+            res = res + shift_part
 
-        if out is None:
-            return res
-        if isinstance(out, np.ndarray):
-            out[cols_idx] += to_numpy(res).astype(out.dtype, copy=False)
+            if out is None:
+                return res
+            if isinstance(out, np.ndarray):
+                out[cols_idx] += to_numpy(res).astype(out.dtype, copy=False)
+                return out
+            oidx = torch.as_tensor(cols_idx, device=out.device)
+            out[oidx] += res.to(device=out.device, dtype=out.dtype)
             return out
-        oidx = torch.as_tensor(cols_idx, device=out.device)
-        out[oidx] += res.to(device=out.device, dtype=out.dtype)
-        return out
 
     def sandwich(
         self,
@@ -203,17 +223,26 @@ class StandardizedMatrix:
         A numpy ``d`` gets a host numpy result; a tensor ``d`` gets a tensor
         on its own device, with no download.
         """
-        if not hasattr(d, "dtype"):
-            d = np.asarray(d)
-        check_sandwich_compatible(self, d)
+        with _trace.span("std.sandwich"):
+            _trace.count("std_sandwich")
+            if not hasattr(d, "dtype"):
+                d = np.asarray(d)
+            check_sandwich_compatible(self, d)
 
-        if rows is not None:
-            rows = set_up_rows_or_cols(rows, self.shape[0], np.int64)
-        if cols is not None:
-            cols = set_up_rows_or_cols(cols, self.shape[1], np.int64)
+            if rows is not None:
+                rows = set_up_rows_or_cols(rows, self.shape[0], np.int64)
+            if cols is not None:
+                cols = set_up_rows_or_cols(cols, self.shape[1], np.int64)
 
-        term1 = self.mat.sandwich(d, rows, cols)
-        d_mat = self.mat.transpose_matvec(d, rows, cols)
+            with _trace.span("std.sandwich.inner"):
+                term1 = self.mat.sandwich(d, rows, cols)
+                d_mat = self.mat.transpose_matvec(d, rows, cols)
+            with _trace.span("std.sandwich.rank1"):
+                return self._expand(term1, d_mat, d, rows, cols)
+
+    def _expand(self, term1, d_mat, d, rows, cols):
+        """``M ∘ term1`` plus the three rank-1 terms; counts the bytes of
+        the (k, k) temporaries in ``std_rank1_bytes``."""
         d, shift, mult = self._params(d)
         if torch.is_tensor(d):
             idx = None if cols is None else torch.as_tensor(cols, device=d.device)
@@ -233,6 +262,8 @@ class StandardizedMatrix:
             + _outer(limited_shift, d_mat)
             + _outer(limited_shift, limited_shift) * d_rows.sum()
         )
+        # three outer products, the scaled one and two sums
+        temps = 6
         if _is_diag(term1):
             if torch.is_tensor(d):
                 diag = term1.diag.to(d.dtype)
@@ -240,12 +271,20 @@ class StandardizedMatrix:
                 diag = _diag_data(term1)
             if limited_mult is not None:
                 diag = diag * limited_mult**2
-            return res + (torch.diag(diag) if torch.is_tensor(d) else np.diag(diag))
-        if torch.is_tensor(d):
-            term1 = term1.to(d.dtype)
-        if limited_mult is not None:
-            term1 = term1 * _outer(limited_mult, limited_mult)
-        return res + term1
+            out = res + (torch.diag(diag) if torch.is_tensor(d) else np.diag(diag))
+            temps += 2
+        else:
+            if torch.is_tensor(d):
+                if term1.dtype != d.dtype:
+                    temps += 1  # the cast copies
+                term1 = term1.to(d.dtype)
+            if limited_mult is not None:
+                term1 = term1 * _outer(limited_mult, limited_mult)
+                temps += 2
+            out = res + term1
+            temps += 1
+        _trace.count("std_rank1_bytes", temps * out.nbytes)
+        return out
 
     # -- conversions / plumbing -------------------------------------------
 
