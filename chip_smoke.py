@@ -10,7 +10,7 @@ Phases, each printed as it runs:
 1. environment: the card's name and power limit, torch/CUDA/nvcc versions,
    TF32 off;
 2. build of the CUDA kernels from ``tabmat_torch/csrc``, one ``nvcc`` per
-   source (ten sources), all at once (seconds, ptxas registers and spills);
+   source (eleven sources), all at once (seconds, ptxas registers and spills);
 3. each kernel against its plain PyTorch version on the card: each of the
    sandwich kernels through its own wrapper (``sandwich_wide<float>`` at
    400,000 x 200 and k in {177, 200, 255, 256,
@@ -106,7 +106,9 @@ Phases, each printed as it runs:
    ``src[idx]`` for the gather, also at the window take's sorted indices),
    the sandwich kernels at 1M x 50, 1M x 5, 4M x 10,
    400k x 160, 400k x 200, 1M x 177, 1M x 129, 200k x 1000 (f32 and f64),
-   ``sparse_gram<T>`` at ``sparse_wide``, and one
+   ``sparse_gram<T>`` at ``sparse_wide``, ``std_expand<T>`` (the
+   standardized sandwich's expansion) in place on that S, against its plain
+   version and bit for bit equal to it, and one
    ``irls_step`` on each path (7b's formula design among them) in each
    inner precision, with the kernel launches per step;
 9. the benchmark CLI, ``tabmat_torch.bench.main.main(argv)`` in process
@@ -1441,6 +1443,48 @@ def sparse_wide_times(card: str, wide: dict) -> dict:
     return times
 
 
+def std_expand_bound(k: int, size: int):
+    """``(bound_ms, bound_by)`` of the standardized sandwich's expansion: T
+    read and written once, the three k-vectors and the weights' sum read
+    once; nine operations an entry."""
+    return bound(2 * k * k * size + 3 * k * size + size, 9 * k * k)
+
+
+def std_expand_times(card: str, wide: dict) -> dict:
+    """The standardized sandwich's expansion at ``sparse_wide``'s width in
+    both types: ``std_expand<T>`` in place on the Gram kernel's S (phase
+    6c's matrix and ``d``), bit for bit its plain version, then both timed."""
+    from tabmat_torch.ops import std_expand_kernel as ek
+
+    times = {}
+    m, dw = wide["matrix"], wide["d"]
+    k = m.shape[1]
+    S = m.sandwich(dw)
+    gen = torch.Generator(device=S.device).manual_seed(28)
+    for dtype in (torch.float64, torch.float32):
+        name = f"std_expand<{'double' if dtype == torch.float64 else 'float'}>"
+        T = S.to(dtype)
+        t, s = (torch.randn(k, device=S.device, dtype=dtype, generator=gen) for _ in range(2))
+        # multipliers near 1: the timed calls rescale T in place again and again
+        mult = 0.9 + 0.2 * torch.rand(k, device=S.device, dtype=dtype, generator=gen)
+        sigma = dw.to(dtype).sum()
+        want = ek.std_expand_plain(T.clone(), t, s, mult, sigma)
+        if not torch.equal(ek.std_expand(T.clone(), t, s, mult, sigma), want):
+            raise AssertionError(f"{name} differs from its plain version at k = {k}")
+        del want
+        tm = _compare(f"{name} sparse_wide k={k}", card,
+                      lambda: ek.std_expand(T, t, s, mult, sigma),
+                      lambda: ek.std_expand_plain(T, t, s, mult, sigma), reps=10, warmup=2)
+        tm["bound"] = std_expand_bound(k, T.element_size())
+        moved = 2 * k * k * T.element_size()
+        print(f"    bound {tm['bound'][0]:.6f} ms by {tm['bound'][1]}; the kernel at "
+              f"{tm['bound'][0] / tm['kernel']:.4f} of it; {moved / (tm['kernel'] * 1e-3):.4e} "
+              "bytes a second of T read and written")
+        times[name] = tm
+        del T
+    return times
+
+
 def phase_times(device, n: int, k: int, card: str, mixed: dict, sparse: dict,
                 cases: list, wide: dict, frames: dict) -> dict:
     """Kernel, plain and library times with their bounds, and IRLS step times."""
@@ -1481,6 +1525,7 @@ def phase_times(device, n: int, k: int, card: str, mixed: dict, sparse: dict,
     del X, d
 
     times.update(sparse_wide_times(card, wide))
+    times.update(std_expand_times(card, wide))
 
     design, y = mixed["design"], mixed["y"]
     cat = design._block("cat")

@@ -24,9 +24,10 @@ captured, and replayed, ``glm._cg_solve_dense``), ``sparse_gram`` (the
 ``SparseMatrix`` sandwiches the sparse Gram kernel serves,
 ``models/sparse.py``),
 ``sparse_panels`` and ``sparse_panel_bytes`` (the row panels a
-``SparseMatrix`` sandwich densifies, and their bytes), and ``std_sandwich``
-and ``std_rank1_bytes`` (``StandardizedMatrix`` sandwiches, and the bytes of
-the (k, k) temporaries their rank-1 expansion allocates,
+``SparseMatrix`` sandwich densifies, and their bytes), and ``std_sandwich``,
+``std_expand_kernel`` and ``std_rank1_bytes`` (``StandardizedMatrix``
+sandwiches, those whose expansion the ``std_expand<T>`` kernel serves, and
+the bytes of the (k, k) temporaries their rank-1 expansion allocates,
 ``models/standardized.py``, whose spans are ``std.matvec``, ``std.tmv`` and
 ``std.sandwich`` > ``std.sandwich.inner``, ``std.sandwich.rank1``).  Kernel
 launches are counted by the wrappers' ``launches`` dicts.

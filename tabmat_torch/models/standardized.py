@@ -10,14 +10,22 @@ where ``t = mat.transpose_matvec(d)`` and ``M = outer(mult, mult)``.
 
 The rank-1 algebra runs in numpy for numpy callers and in torch, on the
 caller's device, for tensor callers; the inner sandwich runs the kernel
-either way.  ``shift`` and ``mult`` go to a tensor caller's device once for
-each (device, dtype) and stay there on the instance.
+either way.  On a CUDA caller whose inner sandwich ``T`` is not diagonal
+(any inner format), the sandwich's expansion is one hand-written pass,
+``std_expand<T>`` (``ops/std_expand_kernel.py``), in place on ``T``, which
+every inner route returns fresh (cast first where its dtype differs): bit
+for bit the torch expansion, which numpy callers, CPU tensors and a
+diagonal (categorical) ``T`` keep.  ``shift`` and ``mult`` go to a tensor
+caller's device once for each (device, dtype) and stay there on the
+instance.
 
 Spans: ``std.matvec``, ``std.tmv`` and ``std.sandwich``, which holds
 ``std.sandwich.inner`` (the inner matrix's sandwich and transpose-matvec)
 and ``std.sandwich.rank1`` (``M ∘ T``, the three rank-1 terms and their
-sum).  Counters: ``std_sandwich``, one a sandwich, and ``std_rank1_bytes``,
-the bytes of the (k, k) temporaries the expansion allocates.
+sum, by the kernel or the torch expansion).  Counters: ``std_sandwich``,
+one a sandwich; ``std_expand_kernel``, one a sandwich the kernel serves;
+``std_rank1_bytes``, the bytes of the (k, k) temporaries the expansion
+allocates (on the kernel's path 0, or ``T``'s cast copy).
 """
 
 from typing import Optional, Union
@@ -26,6 +34,7 @@ import numpy as np
 import torch
 
 from .. import _trace
+from ..ops import std_expand_kernel
 from ..ops.diag import DiagonalResult
 from ..utils import (
     as_numpy_dtype,
@@ -52,6 +61,12 @@ def _diag_data(x) -> np.ndarray:
     if isinstance(x, DiagonalResult):
         return to_numpy(x.diag)
     return np.asarray(x.data[0, :])
+
+
+def _kernel_serves(d, term1) -> bool:
+    """Whether ``std_expand<T>`` serves the expansion: a CUDA tensor caller
+    whose inner sandwich is not diagonal."""
+    return torch.is_tensor(d) and d.device.type == "cuda" and not _is_diag(term1)
 
 
 def _outer(a, b):
@@ -242,7 +257,8 @@ class StandardizedMatrix:
 
     def _expand(self, term1, d_mat, d, rows, cols):
         """``M ∘ term1`` plus the three rank-1 terms; counts the bytes of
-        the (k, k) temporaries in ``std_rank1_bytes``."""
+        the (k, k) temporaries in ``std_rank1_bytes``.  A CUDA ``d`` with a
+        non-diagonal ``term1`` takes the kernel, in place on ``term1``."""
         d, shift, mult = self._params(d)
         if torch.is_tensor(d):
             idx = None if cols is None else torch.as_tensor(cols, device=d.device)
@@ -255,6 +271,9 @@ class StandardizedMatrix:
         limited_mult = None
         if mult is not None:
             limited_mult = mult if idx is None else mult[idx]
+        if _kernel_serves(d, term1):
+            return self._expand_kernel(term1, d_mat, d_rows, limited_shift, limited_mult)
+        if limited_mult is not None:
             d_mat = d_mat * limited_mult
 
         res = (
@@ -285,6 +304,21 @@ class StandardizedMatrix:
             temps += 1
         _trace.count("std_rank1_bytes", temps * out.nbytes)
         return out
+
+    @staticmethod
+    def _expand_kernel(term1, d_mat, d_rows, shift, mult):
+        """The expansion by ``std_expand<T>`` in place on the inner sandwich
+        (fresh on every route), cast first where its dtype or layout differs;
+        ``std_rank1_bytes`` counts that copy alone."""
+        dtype = shift.dtype
+        T = term1
+        if T.dtype != dtype or not T.is_contiguous():
+            T = torch.empty_like(T, dtype=dtype, memory_format=torch.contiguous_format).copy_(T)
+        _trace.count("std_expand_kernel")
+        _trace.count("std_rank1_bytes", 0 if T is term1 else T.nbytes)
+        t = d_mat.reshape(-1).to(dtype).contiguous()
+        mult = None if mult is None else mult.contiguous()
+        return std_expand_kernel.std_expand(T, t, shift.contiguous(), mult, d_rows.sum())
 
     # -- conversions / plumbing -------------------------------------------
 

@@ -1,6 +1,7 @@
 """The CUDA kernels (the sandwiches and their width dispatch, range
-prepass, gather, segment sum, sparse segment product) against their plain
-versions, and the default device, on the card.
+prepass, gather, segment sum, sparse segment product, the standardized
+sandwich's expansion) against their plain versions, and the default
+device, on the card.
 
 Marked ``gpu``: here, without a card, each test skips with its reason.  On
 the card:
@@ -993,3 +994,160 @@ def test_sharded_irls_with_the_cg_graph_on_card(cuda):
             np.testing.assert_allclose(got, single, rtol=1e-8, atol=1e-10)
         else:
             assert np.abs(got - single).max() <= 1e-4 * np.abs(single).max()
+
+
+# -- the standardized sandwich's expansion, std_expand<T> -------------------------
+
+
+def _torch_expansion(term1, d_mat, d_rows, shift, mult):
+    """The torch expansion ``std_expand<T>`` replaces on the card
+    (``StandardizedMatrix._expand`` before the kernel), written out."""
+    a = d_mat if mult is None else d_mat * mult
+    res = torch.outer(a, shift) + torch.outer(shift, a) + torch.outer(shift, shift) * d_rows.sum()
+    term1 = term1.to(shift.dtype)
+    if mult is not None:
+        term1 = term1 * torch.outer(mult, mult)
+    return res + term1
+
+
+def _expand_name(dtype):
+    return f"std_expand<{'double' if dtype == torch.float64 else 'float'}>"
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset"])
+@pytest.mark.parametrize("symmetric", [True, False], ids=["symmetric", "non_symmetric"])
+@pytest.mark.parametrize("scaled", [True, False], ids=["scaled", "centred"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("k", [0, 1, 2, 3, 4, 6, 8, 31, 513, 1_000, 1_001, 2_053])
+def test_std_expand_is_the_torch_expansion_bit_for_bit(cuda, k, dtype, scaled, symmetric,
+                                                       offset):
+    """``std_expand<T>`` in place on T, bit for bit the torch expansion: k of
+    0, 1, odd, and not a multiple of the 16-byte vector (2 in f64, 4 in f32);
+    T at an offset of one value takes the unpacked route."""
+    from tabmat_torch.ops import std_expand_kernel as ek
+
+    gen = torch.Generator(device=cuda).manual_seed(k)
+    T = torch.empty(k * k + offset, device=cuda, dtype=dtype)[offset:].view(k, k)
+    T.copy_(torch.randn(k, k, device=cuda, dtype=dtype, generator=gen))
+    if symmetric:
+        T.copy_(T + T.T)
+    t, s = (torch.randn(k, device=cuda, dtype=dtype, generator=gen) for _ in range(2))
+    m = torch.rand(k, device=cuda, dtype=dtype, generator=gen) + 0.5 if scaled else None
+    d = torch.rand(777, device=cuda, dtype=dtype, generator=gen) - 0.3
+    want = _torch_expansion(T, t, d, s, m)
+    plain = ek.std_expand_plain(T.clone(), t, s, m, d.sum())
+    name = _expand_name(dtype)
+    before = ek.launches[name]
+    got = ek.std_expand(T, t, s, m, d.sum())
+    torch.cuda.synchronize()
+    assert got is T and ek.launches[name] == before + (k > 0)
+    assert torch.equal(got, want) and torch.equal(plain, want)
+
+
+def _std_designs(cuda, dtype):
+    """Inner formats on the card: the sparse Gram route (a symmetric T from
+    ``sparse_gram<T>``: 4,000 x 10,000 at 1%), a DenseMatrix and a
+    SplitMatrix of a dense and a categorical block."""
+    from scipy import sparse as sps
+
+    rng = np.random.default_rng(28)
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    wide = sps.random(4_000, 10_000, density=0.01, format="csc", random_state=rng)
+    dense = rng.standard_normal((4_000, 333)).astype(np_dtype)
+    codes = rng.integers(0, 40, 4_000)
+    split = tt.SplitMatrix([tt.DenseMatrix(dense[:, :7], device=cuda),
+                            tt.CategoricalMatrix(codes, dtype=np_dtype, device=cuda)])
+    return {"sparse_gram": tt.SparseMatrix(wide.astype(np_dtype), device=cuda),
+            "dense": tt.DenseMatrix(dense, device=cuda), "split": split}
+
+
+@pytest.mark.parametrize("restrict", ["all", "rows", "cols", "rows_and_cols"])
+@pytest.mark.parametrize("scale", [True, False], ids=["scaled", "centred"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_standardized_sandwich_takes_std_expand_on_card(cuda, dtype, scale, restrict):
+    """``StandardizedMatrix.sandwich`` with a CUDA ``d`` over each inner
+    format: one ``std_expand<T>`` a sandwich, bit for bit the torch expansion
+    of the same inner results; ``std_expand_kernel`` counts it and
+    ``std_rank1_bytes`` reads 0; a second sandwich with the same ``d`` gives
+    the same result (nothing cached was written over)."""
+    from tabmat_torch import _trace
+    from tabmat_torch.ops import std_expand_kernel as ek
+
+    for label, inner in _std_designs(cuda, dtype).items():
+        n, k = inner.shape
+        rng = np.random.default_rng(k)
+        m = inner.standardize(np.full(n, 1.0 / n), True, scale)[0]
+        # standardize keeps float64 parameters: in float32 the view's own
+        np_dtype = np.float64 if dtype == torch.float64 else np.float32
+        m = tt.StandardizedMatrix(m.mat, m.shift.astype(np_dtype),
+                                  None if m.mult is None else m.mult.astype(np_dtype))
+        d = torch.as_tensor(rng.random(n) + 0.05, device=cuda, dtype=dtype)
+        rows = np.sort(rng.choice(n, n // 2, replace=False)) if "rows" in restrict else None
+        cols = np.sort(rng.choice(k, k // 3, replace=False)) if "cols" in restrict else None
+        _, shift, mult = m._params(d)
+        name = _expand_name(dtype)
+        idx = slice(None) if cols is None else torch.as_tensor(cols, device=cuda)
+        d_rows = d if rows is None else d[torch.as_tensor(rows, device=cuda)]
+        want = _torch_expansion(m.mat.sandwich(d, rows, cols),
+                                m.mat.transpose_matvec(d, rows, cols), d_rows, shift[idx],
+                                None if mult is None else mult[idx])
+        before = ek.launches[name]
+        _trace.disable()
+        _trace.take()
+        _trace.enable()
+        try:
+            first = m.sandwich(d, rows, cols)
+            second = m.sandwich(d, rows, cols)
+        finally:
+            _trace.disable()
+        counters = _trace.take()["counters"]
+        torch.cuda.synchronize()
+        assert ek.launches[name] == before + 2, label
+        assert counters["std_expand_kernel"] == 2 and counters["std_rank1_bytes"] == 0, label
+        assert torch.equal(first, want) and torch.equal(second, want), label
+
+
+def test_std_expand_casts_a_term_of_another_dtype_once(cuda):
+    """An inner result in float32 under a float64 ``d``: cast once, then the
+    kernel in place on the copy; ``std_rank1_bytes`` counts that copy."""
+    from tabmat_torch import _trace
+    from tabmat_torch.ops import std_expand_kernel as ek
+
+    rng = np.random.default_rng(5)
+    k, n = 257, 3_000
+    m = tt.DenseMatrix(rng.standard_normal((n, k)), device=cuda).standardize(
+        np.full(n, 1.0 / n), True, True)[0]
+    d = torch.as_tensor(rng.random(n), device=cuda)
+    term1 = m.mat.sandwich(d).float()
+    d_mat = m.mat.transpose_matvec(d)
+    _, shift, mult = m._params(d)
+    want = _torch_expansion(term1, d_mat, d, shift, mult)
+    before = ek.launches["std_expand<double>"]
+    _trace.disable()
+    _trace.take()
+    _trace.enable()
+    try:
+        got = m._expand(term1, d_mat, d, None, None)
+    finally:
+        _trace.disable()
+    counters = _trace.take()["counters"]
+    torch.cuda.synchronize()
+    assert ek.launches["std_expand<double>"] == before + 1
+    assert got.dtype == torch.float64 and torch.equal(got, want)
+    assert counters == {"std_expand_kernel": 1, "std_rank1_bytes": k * k * 8}
+
+
+def test_a_diagonal_inner_sandwich_keeps_the_torch_expansion_on_card(cuda):
+    from tabmat_torch.ops import std_expand_kernel as ek
+
+    n = 5_000
+    codes = np.random.default_rng(6).integers(0, 50, n)
+    m = tt.CategoricalMatrix(codes, device=cuda).standardize(np.full(n, 1.0 / n), True,
+                                                             True)[0]
+    d = torch.rand(n, device=cuda, dtype=torch.float64)
+    before = dict(ek.launches)
+    S = m.sandwich(d)
+    assert ek.launches == before
+    Z = m.toarray()
+    want = (Z * d.cpu().numpy()[:, None]).T @ Z
+    assert float(np.abs(S.cpu().numpy() - want).max()) <= 1e-13 * float(np.abs(want).max())
