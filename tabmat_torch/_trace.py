@@ -20,7 +20,11 @@ first call on the card, ``ops/segsum_kernel.py``, ``ops/spmv_kernel.py`` and
 ``ops/sparse_gram_kernel.py``),
 ``steps`` (Newton steps, ``glm.py``), ``cg_graph_captures`` and
 ``cg_graph_replays`` (the CUDA graphs of the explicit-Hessian CG solve
-captured, and replayed, ``glm._cg_solve_dense``), ``sparse_gram`` (the
+captured, and replayed, ``glm._cg_solve_dense``), ``hvp_steps`` and ``hvp``
+(the Newton steps on the Hessian-vector route of ``glm.irls_step``, and the
+Hessian-vector products their CG solves run), ``hvp_route.standardized``,
+``hvp_route.wide`` and ``hvp_route.plan`` (one a step on that route for each
+reason ``DeviceDesign.sandwich_refusals`` gives), ``sparse_gram`` (the
 ``SparseMatrix`` sandwiches the sparse Gram kernel serves,
 ``models/sparse.py``),
 ``sparse_panels`` and ``sparse_panel_bytes`` (the row panels a
@@ -102,6 +106,11 @@ def count(name: str, n: int = 1) -> None:
     """Add ``n`` to the counter ``name``."""
     if _enabled:
         _counters[name] = _counters.get(name, 0) + n
+
+
+def enabled() -> bool:
+    """Whether spans and counters are being recorded."""
+    return _enabled
 
 
 def enable() -> None:

@@ -249,7 +249,10 @@ def irls_step(
     A design with an explicit sandwich builds the Hessian once
     (``Xᵀ diag(w) X``, the CUDA kernel on a GPU) and runs CG on the (k, k)
     matrix, on a GPU as one CUDA graph (``_cg_solve_dense``); otherwise the
-    Hessian-vector product is two matvecs.
+    Hessian-vector product is two matvecs.  On that route the counter
+    ``hvp_steps`` takes one a step, ``hvp`` one a product, and
+    ``hvp_route.<reason>`` one a step for each of the design's
+    ``sandwich_refusals``.
     """
     with _trace.span("step"):
         _trace.count("steps")
@@ -288,6 +291,10 @@ def irls_step(
                 delta = _cg_solve_dense(H, grad, n_cg)
                 return beta + delta
 
+        _trace.count("hvp_steps")
+        if _trace.enabled():
+            for reason in getattr(X, "sandwich_refusals", ()):
+                _trace.count("hvp_route." + reason)
         if f32_inner:
             with _trace.span("step.scale"):
                 if torch.is_tensor(X):
@@ -298,6 +305,7 @@ def irls_step(
                 ps32 = ps.to(torch.float32)
 
             def hvp(v):
+                _trace.count("hvp")
                 return X32.T @ (w32 * (X32 @ v)) + l2 * ps32 * v
 
             with _trace.span("step.cg"):
@@ -305,6 +313,7 @@ def irls_step(
                 return beta + delta.to(beta.dtype)
 
         def hvp(v):
+            _trace.count("hvp")
             return tmv(w * mv(v)) + l2 * ps * v
 
         with _trace.span("step.cg"):

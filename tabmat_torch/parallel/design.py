@@ -362,9 +362,10 @@ class DeviceDesign:
         The float32 design is built on the first call and kept, so an IRLS
         loop with a float32 inner solve casts the dense block once per
         design instead of once per step.  The codes and plans are shared.
-        Its float32 blocks are charged to the device-cache ledger
-        (``_config.cache_charge``) with the design as owner; when refused,
-        the cast design is returned and not kept, so each call casts anew.
+        Its float32 blocks, ``shift`` and ``mult`` are charged to the
+        device-cache ledger (``_config.cache_charge``) with the design as
+        owner; when refused, the cast design is returned and not kept, so
+        each call casts anew.
         """
         if dtype == self.dtype:
             return self
@@ -380,8 +381,9 @@ class DeviceDesign:
         d = object.__new__(type(self))
         d.__dict__.update(self.__dict__)
         d.blocks, d.dtype, d.shift, d.mult = blocks, dtype, cast(self.shift), cast(self.mult)
-        if cache_charge(tensor_bytes(t for b in blocks if b.kind != "cat"
-                                     for t in b.float_tensors()), self):
+        kept = [t for b in blocks if b.kind != "cat" for t in b.float_tensors()]
+        kept += [t for t in (d.shift, d.mult) if t is not None]
+        if cache_charge(tensor_bytes(kept), self):
             self._f32 = d
         return d
 
@@ -414,23 +416,29 @@ class DeviceDesign:
             return out
 
     @property
-    def supports_sandwich(self) -> bool:
-        """True when the explicit sandwich is available.
-
-        Standardized designs take the Hessian-vector path, as in the
-        reference, and so do designs whose cat×cat cross plans, sparse pair
-        plan or sparse×cat plan were too large to build
-        (``design.py:610-641``).
-        """
+    def sandwich_refusals(self) -> tuple:
+        """Why the explicit sandwich is not available, empty when it is:
+        ``"standardized"`` (a ``shift`` or ``mult``), ``"wide"`` (more than
+        ``SANDWICH_MAX_COLS`` columns) and ``"plan"`` (a cat×cat cross plan,
+        the sparse pair plan or the sparse×cat plan was too large to build,
+        ``design.py:610-641``), each that holds."""
         cat, sparse = self._block("cat"), self._block("sparse")
-        return (
-            self.shape[1] <= self.SANDWICH_MAX_COLS
-            and self.shift is None
-            and self.mult is None
-            and (cat is None or cat.has_cross_plans)
-            and (sparse is None or (sparse.pair is not None
-                                    and (cat is None or sparse.cat is not None)))
-        )
+        plans = ((cat is None or cat.has_cross_plans)
+                 and (sparse is None or (sparse.pair is not None
+                                         and (cat is None or sparse.cat is not None))))
+        return tuple(reason for reason, refused in (
+            ("standardized", self.shift is not None or self.mult is not None),
+            ("wide", self.shape[1] > self.SANDWICH_MAX_COLS),
+            ("plan", not plans),
+        ) if refused)
+
+    @property
+    def supports_sandwich(self) -> bool:
+        """True when the explicit sandwich is available: no
+        :attr:`sandwich_refusals`.  Standardized designs take the
+        Hessian-vector path, as in the reference, and so do designs past a
+        width or a plan's budget."""
+        return not self.sandwich_refusals
 
     def sandwich(self, w: torch.Tensor) -> torch.Tensor:
         """Explicit ``Xᵀ diag(w) X`` → (k, k): the dense cell through the
