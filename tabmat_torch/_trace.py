@@ -22,7 +22,10 @@ first call on the card, ``ops/segsum_kernel.py``, ``ops/spmv_kernel.py`` and
 ``cg_graph_replays`` (the CUDA graphs of the explicit-Hessian CG solve
 captured, and replayed, ``glm._cg_solve_dense``), ``hvp_steps`` and ``hvp``
 (the Newton steps on the Hessian-vector route of ``glm.irls_step``, and the
-Hessian-vector products their CG solves run), ``hvp_route.standardized``,
+Hessian-vector products their CG solves run), ``hvp_graph_captures`` and
+``hvp_graph_replays`` (the CUDA graphs of that solve captured, once a design
+and key, and replayed, once a step on the card, ``glm._cg_solve_hvp``),
+``hvp_route.standardized``,
 ``hvp_route.wide`` and ``hvp_route.plan`` (one a step on that route for each
 reason ``DeviceDesign.sandwich_refusals`` gives), ``sparse_gram`` (the
 ``SparseMatrix`` sandwiches the sparse Gram kernel serves,

@@ -4,8 +4,9 @@ Port of ``tabmat_tpu/glm.py``: iteratively reweighted least squares with a
 conjugate-gradient inner solve, and FISTA for the elastic net.  The
 reference jit-compiles each step; the port runs eagerly, so its fixed-count
 loops (``lax.fori_loop``) are Python loops over device tensors with no
-host synchronisation inside a step.  On a CUDA card the CG loop on an
-explicit Hessian is captured once as a CUDA graph and replayed.
+host synchronisation inside a step.  On a CUDA card the CG loop is captured
+once as a CUDA graph and replayed: on an explicit Hessian, and on a
+design's Hessian-vector product.
 
 Functional core:
   - ``irls_step(X, y, weights, beta, family=...)`` — one Newton step
@@ -146,6 +147,18 @@ def _cg_solve(matvec: Callable, b: torch.Tensor, n_iter: int) -> torch.Tensor:
 _CG_GRAPHS_KEPT = 4
 _cg_graphs = OrderedDict()
 _cg_lock = threading.Lock()
+# one side stream a device for every capture, made at the first: cuBLAS keeps
+# a workspace (32 MiB on the H100) for each stream it has run on, for the
+# process's life
+_capture_streams = {}
+
+
+def _capture_stream() -> torch.cuda.Stream:
+    """The current device's capture stream; callers hold ``_cg_lock``."""
+    device = torch.cuda.current_device()
+    if device not in _capture_streams:
+        _capture_streams[device] = torch.cuda.Stream()
+    return _capture_streams[device]
 
 
 def _cg_solve_dense(H: torch.Tensor, b: torch.Tensor, n_iter: int) -> torch.Tensor:
@@ -195,7 +208,7 @@ def _cg_capture(H: torch.Tensor, b: torch.Tensor, n_iter: int):
     the end of a call's copy out."""
     H_static = H.clone(memory_format=torch.contiguous_format)
     b_static = b.clone(memory_format=torch.contiguous_format)
-    stream = torch.cuda.Stream()
+    stream = _capture_stream()
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):
         _cg_solve(lambda v: H_static @ v, b_static, n_iter)
@@ -204,6 +217,110 @@ def _cg_capture(H: torch.Tensor, b: torch.Tensor, n_iter: int):
         x_static = _cg_solve(lambda v: H_static @ v, b_static, n_iter)
     _trace.count("cg_graph_captures")
     return graph, H_static, b_static, x_static, torch.cuda.Event()
+
+
+def _hessian_product(X, w: torch.Tensor, ps: torch.Tensor, l2: float) -> Callable:
+    """``v ↦ Xᵀ (w ∘ (X v)) + l2 · ps ∘ v``, for a tensor or a design ``X``."""
+    return lambda v: X.T @ (w * (X @ v)) + l2 * ps * v
+
+
+def _hvp_graphs(X, Xs):
+    """The CUDA graphs of the Hessian-vector solve on ``Xs``, held by that
+    design, or None where the solve runs eagerly: a tensor, a design off
+    the card, a ``ShardedDesign`` (its transpose-matvec all-reduces), and a
+    float32 cast ``X`` did not keep (the cache ledger refused it), which
+    dies with the step.  ``Xs`` is ``X`` or ``X.astype_float(float32)``."""
+    from .parallel.design import DeviceDesign, ShardedDesign
+
+    if (not isinstance(Xs, DeviceDesign) or isinstance(Xs, ShardedDesign)
+            or Xs.device.type != "cuda" or (Xs is not X and X._f32 is not Xs)):
+        return None
+    return Xs._hvp_graphs
+
+
+def _cg_solve_hvp(X, Xs, w: torch.Tensor, ps: torch.Tensor, b: torch.Tensor, l2: float,
+                  n_iter: int) -> torch.Tensor:
+    """``_cg_solve`` on ``_hessian_product(Xs, w, ps, l2)``, counting a product
+    in ``hvp``.
+
+    On the card (:func:`_hvp_graphs`) the loop is one CUDA graph, captured at
+    the first call of its (dtype, k, n_iter, l2) and held by ``Xs``, whose
+    tensors it reads by address, so it goes with the design: ``w``, ``ps``
+    and ``b`` are copied into the graph's own tensors, the graph runs the
+    eager loop's kernels in the same order, and a copy of its result is
+    returned, bit for bit the eager loop's.  While the current stream is
+    being captured into a caller's graph the loop runs eagerly.
+    """
+    graphs = _hvp_graphs(X, Xs)
+    if graphs is None:
+        return _cg_solve(_counted(_hessian_product(Xs, w, ps, l2)), b, n_iter)
+    with torch.cuda.device(Xs.device):
+        if torch.cuda.is_current_stream_capturing():
+            return _cg_solve(_counted(_hessian_product(Xs, w, ps, l2)), b, n_iter)
+        key = (b.dtype, b.shape[0], n_iter, l2)
+        with _cg_lock:
+            entry = graphs.get(key)
+            if entry is None:
+                entry = graphs[key] = _hvp_capture(Xs, w, ps, b, l2, n_iter)
+            graph, w_static, ps_static, b_static, x_static, done, launched = entry
+            stream = torch.cuda.current_stream()
+            # the last call's copy out, whichever stream it was queued on
+            stream.wait_event(done)
+            w_static.copy_(w)
+            ps_static.copy_(ps)
+            b_static.copy_(b)
+            graph.replay()
+            x = x_static.clone()
+            done.record(stream)
+            for counts, name, n in launched:
+                counts[name] += n
+            _trace.count("hvp", n_iter)
+            _trace.count("hvp_graph_replays")
+        return x
+
+
+def _counted(hvp: Callable) -> Callable:
+    def counted(v):
+        _trace.count("hvp")
+        return hvp(v)
+
+    return counted
+
+
+def _kernel_launch_counts() -> list:
+    """The kernel wrappers' ``launches`` dicts."""
+    from .ops import (gather_kernel, sandwich_kernel, segsum_kernel, sparse_gram_kernel,
+                      spmv_kernel, std_expand_kernel)
+
+    return [m.launches for m in (gather_kernel, sandwich_kernel, segsum_kernel,
+                                 sparse_gram_kernel, spmv_kernel, std_expand_kernel)]
+
+
+def _hvp_capture(X, w: torch.Tensor, ps: torch.Tensor, b: torch.Tensor, l2: float, n_iter: int):
+    """The entry of :func:`_cg_solve_hvp`: (graph, w, ps, b, x, event,
+    launches).  One product runs on the capture stream first, which gives
+    cuBLAS its workspace there and builds any kernel table the float32
+    design's plans still lack; then the loop is captured.  The capture runs
+    no kernel, so the wrappers' launch counts it raised are taken back and
+    listed as (dict, name, count), which each replay adds."""
+    w_static, ps_static, b_static = (t.clone(memory_format=torch.contiguous_format)
+                                     for t in (w, ps, b))
+    hvp = _hessian_product(X, w_static, ps_static, l2)
+    stream = _capture_stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        hvp(b_static)
+    counts = _kernel_launch_counts()
+    before = [dict(c) for c in counts]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+        x_static = _cg_solve(hvp, b_static, n_iter)
+    launched = [(c, name, n - old[name]) for c, old in zip(counts, before)
+                for name, n in c.items() if n != old[name]]
+    for c, old in zip(counts, before):
+        c.update(old)
+    _trace.count("hvp_graph_captures")
+    return graph, w_static, ps_static, b_static, x_static, torch.cuda.Event(), launched
 
 
 def _f32_hessian_scale(X32, w: torch.Tensor) -> torch.Tensor:
@@ -249,9 +366,10 @@ def irls_step(
     A design with an explicit sandwich builds the Hessian once
     (``Xᵀ diag(w) X``, the CUDA kernel on a GPU) and runs CG on the (k, k)
     matrix, on a GPU as one CUDA graph (``_cg_solve_dense``); otherwise the
-    Hessian-vector product is two matvecs.  On that route the counter
-    ``hvp_steps`` takes one a step, ``hvp`` one a product, and
-    ``hvp_route.<reason>`` one a step for each of the design's
+    Hessian-vector product is two matvecs, and on a design on the card the
+    CG loop over it is one CUDA graph the design holds (``_cg_solve_hvp``).
+    On that route the counter ``hvp_steps`` takes one a step, ``hvp`` one a
+    product, and ``hvp_route.<reason>`` one a step for each of the design's
     ``sandwich_refusals``.
     """
     with _trace.span("step"):
@@ -303,21 +421,11 @@ def irls_step(
                     X32 = X.astype_float(torch.float32)
                 w32 = w.to(torch.float32)
                 ps32 = ps.to(torch.float32)
-
-            def hvp(v):
-                _trace.count("hvp")
-                return X32.T @ (w32 * (X32 @ v)) + l2 * ps32 * v
-
             with _trace.span("step.cg"):
-                delta = _cg_solve(hvp, grad.to(torch.float32), n_cg)
+                delta = _cg_solve_hvp(X, X32, w32, ps32, grad.to(torch.float32), l2, n_cg)
                 return beta + delta.to(beta.dtype)
-
-        def hvp(v):
-            _trace.count("hvp")
-            return tmv(w * mv(v)) + l2 * ps * v
-
         with _trace.span("step.cg"):
-            delta = _cg_solve(hvp, grad, n_cg)
+            delta = _cg_solve_hvp(X, X, w, ps, grad, l2, n_cg)
             return beta + delta
 
 

@@ -269,6 +269,9 @@ class DeviceDesign:
         self.shift = shift  # standardization: x -> mult*x + shift (per col)
         self.mult = mult
         self._f32 = None  # the float32 design, built once by astype_float
+        # the CUDA graphs of the Hessian-vector CG solve on this design's
+        # tensors (``glm._cg_solve_hvp``), freed with it
+        self._hvp_graphs = {}
         order = np.concatenate([b.positions for b in blocks])
         self._identity_order = bool(np.array_equal(order, np.arange(n_cols)))
         device = self.device
@@ -381,6 +384,7 @@ class DeviceDesign:
         d = object.__new__(type(self))
         d.__dict__.update(self.__dict__)
         d.blocks, d.dtype, d.shift, d.mult = blocks, dtype, cast(self.shift), cast(self.mult)
+        d._hvp_graphs = {}
         kept = [t for b in blocks if b.kind != "cat" for t in b.float_tensors()]
         kept += [t for t in (d.shift, d.mult) if t is not None]
         if cache_charge(tensor_bytes(kept), self):

@@ -272,6 +272,77 @@ def test_cg_solve_dense_is_the_eager_loop_on_cpu(case):
     assert "cg_graph_captures" not in counters and "cg_graph_replays" not in counters
 
 
+@pytest.mark.parametrize("inner", ["float64", "float32"])
+@pytest.mark.parametrize("kind", ["design", "tensor"])
+def test_hvp_route_is_the_eager_loop_off_the_card(kind, inner):
+    """On the CPU, and for a plain tensor, the Hessian-vector route's solve is
+    ``_cg_solve`` on the eager product bit for bit, ``hvp`` counts every
+    product, and no graph is captured, replayed or held."""
+    from tabmat_torch import _trace
+
+    X, y, w, beta0 = _problem("poisson", seed=51)
+    _, port = _designs(X, standardized=True)
+    if kind == "tensor":
+        port = torch.tensor(X)
+    yt, wt, bt = torch.tensor(y), torch.tensor(8 * w), torch.tensor(beta0)
+    ps = torch.tensor(np.r_[0.0, np.ones(X.shape[1] - 1)])
+    _trace.disable()
+    _trace.take()
+    _trace.enable()
+    try:
+        got = glm.irls_step(port, yt, wt, bt, family="poisson", n_cg=8, l2=0.5,
+                            inner_precision=inner, penalty_scale=ps)
+        counters = _trace.take()["counters"]
+    finally:
+        _trace.disable()
+        _trace.take()
+    _, w_irls, resid = glm._family_terms("poisson", port @ bt, yt)
+    w_all = wt * w_irls
+    grad = port.T @ (wt * resid) - 0.5 * ps * bt
+    if inner == "float32":
+        Xs = port.to(torch.float32) if kind == "tensor" else port.astype_float(torch.float32)
+        hvp = glm._hessian_product(Xs, w_all.to(torch.float32), ps.to(torch.float32), 0.5)
+        want = bt + glm._cg_solve(hvp, grad.to(torch.float32), 8).to(torch.float64)
+    else:
+        want = bt + glm._cg_solve(glm._hessian_product(port, w_all, ps, 0.5), grad, 8)
+    assert torch.equal(got, want)
+    assert counters["hvp_steps"] == 1 and counters["hvp"] == 8
+    assert not [name for name in counters if name.startswith("hvp_graph")]
+    if kind == "design":
+        assert port._hvp_graphs == {} and port.astype_float(torch.float32)._hvp_graphs == {}
+
+
+def test_hvp_graphs_are_held_by_the_design_they_read(monkeypatch):
+    """On a card the graphs of a float32 inner solve live on the kept float32
+    design and those of a float64 solve on the design itself, each in a dict
+    of its own; a cast the cache ledger refused, a tensor and a sharded
+    design hold none.  (The device is faked: the rule reads nothing else.)"""
+    from tabmat_torch import _config
+    from tabmat_torch.parallel.design import ShardedDesign
+
+    X, _, _, _ = _problem("gaussian")
+    (_, port), (_, fresh) = _designs(X, standardized=True), _designs(X, standardized=True)
+    assert glm._hvp_graphs(port, port) is None  # on the CPU
+    monkeypatch.setattr(DeviceDesign, "device", property(lambda self: torch.device("cuda", 0)))
+    p32 = port.astype_float(torch.float32)
+    assert glm._hvp_graphs(port, port) is port._hvp_graphs
+    assert glm._hvp_graphs(port, p32) is p32._hvp_graphs
+    assert p32._hvp_graphs is not port._hvp_graphs
+    tensor = torch.tensor(X)
+    assert glm._hvp_graphs(tensor, tensor.to(torch.float32)) is None
+    sharded = object.__new__(ShardedDesign)
+    sharded.__dict__.update(port.__dict__)
+    assert glm._hvp_graphs(sharded, sharded) is None
+    _config.set_cache_budget_mb(0)
+    try:
+        refused = fresh.astype_float(torch.float32)
+        assert fresh._f32 is None
+        assert glm._hvp_graphs(fresh, refused) is None
+        assert glm._hvp_graphs(fresh, fresh) is fresh._hvp_graphs
+    finally:
+        _config.set_cache_budget_mb(None)
+
+
 @pytest.mark.parametrize("kind", ["numpy", "tensor", "dense", "standardized"])
 @pytest.mark.parametrize("inner", ["float64", "float32"])
 def test_fit_glm(kind, inner):

@@ -996,6 +996,160 @@ def test_sharded_irls_with_the_cg_graph_on_card(cuda):
             assert np.abs(got - single).max() <= 1e-4 * np.abs(single).max()
 
 
+# -- the Hessian-vector CG solve, replayed as a CUDA graph --------------------------
+
+# glum's standardized [1 | X] (the cell sparse_wide_std.fit's generator) at
+# 3,000 x 401: the standardization refuses the explicit Hessian
+STD_FIT = {"rows": 3000, "cols": 400, "density": 0.02,
+           "standardize": {"weights": "1/n", "center_predictors": True,
+                           "scale_predictors": True}}
+STD_L2, STD_N_CG = 3.0, 25
+
+
+@pytest.fixture(scope="module")
+def std_fit_data():
+    from glmbench.data import sparse_wide_std_poisson
+
+    return sparse_wide_std_poisson.make(STD_FIT, 2**31 + 30, 1)[0]
+
+
+def _std_fit_design(cuda, data):
+    from glmbench.data import sparse_wide_std_poisson
+    from tabmat_torch.parallel.design import DeviceDesign
+
+    design = DeviceDesign.from_matrix(
+        sparse_wide_std_poisson.to_program(tt, data, STD_FIT, np.float64, cuda))
+    assert design.sandwich_refusals == ("standardized",)
+    return design
+
+
+def _std_fit(design, data, inner):
+    return tt.fit_glm(design, data["y"], sample_weight=data["weights"], family="poisson",
+                      max_iter=50, tol=1e-8, n_cg=STD_N_CG, l2=STD_L2, inner_precision=inner,
+                      penalty_scale=np.r_[0.0, np.ones(STD_FIT["cols"])])
+
+
+def _eager_hvp(monkeypatch):
+    """Every Hessian-vector solve eager from here on."""
+    from tabmat_torch import glm
+
+    monkeypatch.setattr(glm, "_hvp_graphs", lambda X, Xs: None)
+
+
+@pytest.mark.parametrize("inner", ["float32", "float64"])
+def test_hvp_graph_fit_is_the_eager_fit(cuda, monkeypatch, graph_counters, std_fit_data, inner):
+    """``fit_glm`` on the standardized design: β bit for bit the eager loop's
+    and the same steps; one capture a design, held by it, so a second fit on
+    it replays every step; a replay and 25 products a step."""
+    from tabmat_torch import glm
+
+    design = _std_fit_design(cuda, std_fit_data)
+    beta, n_iter = _std_fit(design, std_fit_data, inner)
+    again, n_again = _std_fit(design, std_fit_data, inner)
+    counters = graph_counters()
+    assert 1 < n_iter < 50 and n_again == n_iter
+    steps = counters["steps"]
+    assert steps == counters["hvp_steps"] == 2 * n_iter
+    assert counters["hvp_graph_captures"] == 1
+    assert counters["hvp_graph_replays"] == steps and counters["hvp"] == STD_N_CG * steps
+    holder = design._f32 if inner == "float32" else design
+    dtype = torch.float32 if inner == "float32" else torch.float64
+    assert list(holder._hvp_graphs) == [(dtype, STD_FIT["cols"] + 1, STD_N_CG, STD_L2)]
+    _eager_hvp(monkeypatch)
+    eager, eager_iter = _std_fit(_std_fit_design(cuda, std_fit_data), std_fit_data, inner)
+    assert eager_iter == n_iter
+    assert torch.equal(beta.view(torch.int64), eager.view(torch.int64))
+    assert torch.equal(again.view(torch.int64), eager.view(torch.int64))
+    after = graph_counters()
+    assert after["hvp_graph_captures"] == 1
+    assert after["hvp_graph_replays"] == counters["hvp_graph_replays"]
+    assert glm._cg_graphs == {}
+
+
+def test_hvp_graph_new_inputs_and_results_held_apart(cuda, graph_counters, std_fit_data):
+    """A replay with new weights, ``ps`` and ``b`` gives their answer, not the
+    last one; two results held at once are two tensors, neither the graph's
+    own buffer; another ``l2`` is another graph."""
+    from tabmat_torch import glm
+
+    design = _std_fit_design(cuda, std_fit_data)
+    X32 = design.astype_float(torch.float32)
+    k = design.shape[1]
+    gen = torch.Generator(device=cuda).manual_seed(30)
+    inputs = [(torch.rand(design.shape[0], device=cuda, generator=gen) + 0.5,
+               torch.rand(k, device=cuda, generator=gen),
+               torch.randn(k, device=cuda, generator=gen)) for _ in range(2)]
+    got = [glm._cg_solve_hvp(design, X32, w, ps, b, STD_L2, STD_N_CG) for w, ps, b in inputs]
+    want = [glm._cg_solve(glm._hessian_product(X32, w, ps, STD_L2), b, STD_N_CG)
+            for w, ps, b in inputs]
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, e) for g, e in zip(got, want))
+    assert not torch.equal(got[0], got[1])
+    x_static = X32._hvp_graphs[(torch.float32, k, STD_N_CG, STD_L2)][4]
+    assert len({got[0].data_ptr(), got[1].data_ptr(), x_static.data_ptr()}) == 3
+    counters = {name: n for name, n in graph_counters().items() if name.startswith("hvp")}
+    assert counters == {"hvp_graph_captures": 1, "hvp_graph_replays": 2, "hvp": 2 * STD_N_CG}
+    w, ps, b = inputs[0]
+    other = glm._cg_solve_hvp(design, X32, w, ps, b, 2 * STD_L2, STD_N_CG)
+    assert torch.equal(other, glm._cg_solve(glm._hessian_product(X32, w, ps, 2 * STD_L2), b,
+                                            STD_N_CG))
+    assert len(X32._hvp_graphs) == 2 and design._hvp_graphs == {}
+
+
+@pytest.mark.parametrize("inner", ["float32", "float64"])
+def test_hvp_graph_fit_counts_the_launches_it_runs(cuda, monkeypatch, graph_counters,
+                                                   std_fit_data, inner):
+    """``spmv``'s launch counts over a fit are the eager fit's and the one
+    product that runs before the capture: the capture's own count is taken
+    back and every replay adds the launches it runs."""
+    from tabmat_torch import glm
+    from tabmat_torch.ops import spmv_kernel
+
+    def launches(fn):
+        before = dict(spmv_kernel.launches)
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {name: n - before[name] for name, n in spmv_kernel.launches.items()}
+
+    design = _std_fit_design(cuda, std_fit_data)
+    (_, n_iter), graph = launches(lambda: _std_fit(design, std_fit_data, inner))
+    assert graph_counters()["hvp_graph_captures"] == 1
+    Xs = design.astype_float(torch.float32) if inner == "float32" else design
+    v = torch.ones(design.shape[1], dtype=Xs.dtype, device=cuda)
+    w = torch.ones(design.shape[0], dtype=Xs.dtype, device=cuda)
+    _, product = launches(lambda: glm._hessian_product(Xs, w, v, STD_L2)(v))
+    _eager_hvp(monkeypatch)
+    fresh = _std_fit_design(cuda, std_fit_data)  # its standardization launches spmv too
+    (_, eager_iter), eager = launches(lambda: _std_fit(fresh, std_fit_data, inner))
+    assert eager_iter == n_iter
+    name = "spmv<float>" if inner == "float32" else "spmv<double>"
+    assert product[name] == 2
+    assert graph == {k: eager[k] + product[k] for k in eager}
+    assert graph[name] >= 2 * STD_N_CG * n_iter
+
+
+def test_hvp_graph_not_captured_for_a_cast_the_ledger_refused(cuda, monkeypatch, graph_counters,
+                                                               std_fit_data):
+    """With the float32 design's charge refused, its cast lives for one step,
+    so the float32 fit runs eagerly, captures nothing and gives the eager
+    fit's β."""
+    from tabmat_torch import _config
+
+    design = _std_fit_design(cuda, std_fit_data)
+    _config.set_cache_budget_mb(_config.cache_spent_bytes() / (1 << 20))
+    try:
+        beta, n_iter = _std_fit(design, std_fit_data, "float32")
+        assert design._f32 is None
+    finally:
+        _config.set_cache_budget_mb(None)
+    counters = graph_counters()
+    assert counters["hvp_steps"] == n_iter and counters["hvp"] == STD_N_CG * n_iter
+    assert not [name for name in counters if name.startswith("hvp_graph")]
+    _eager_hvp(monkeypatch)
+    eager, eager_iter = _std_fit(_std_fit_design(cuda, std_fit_data), std_fit_data, "float32")
+    assert eager_iter == n_iter and torch.equal(beta, eager)
+
+
 # -- the standardized sandwich's expansion, std_expand<T> -------------------------
 
 
